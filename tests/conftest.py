@@ -27,3 +27,9 @@ def tiny_batch(cfg, key, batch=2, seq=32):
         out["vision_embeds"] = jax.random.normal(
             ks[2], (batch, 8, cfg.d_model)).astype(jnp.bfloat16)
     return out
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: runs a CUDA kernel; skips where no CUDA device is "
+                   "present")
