@@ -1,15 +1,22 @@
 """Serving launcher on PyTorch: request-trace-driven continuous batching.
 
 Builds a synthetic arrival trace (poisson / staggered / burst), replays it
-against the paged continuous-batching engine on ``--device`` (default
-``cuda``), and reports throughput and latency percentiles.  Weights are
-random, from a seeded ``torch.Generator``.  ``--attn-impl paged`` runs the
-decode attention through the paged-attention kernel.
+against the continuous-batching engine on ``--device`` (default ``cuda``)
+— the paged pool, or the slot pool with ``--paged off`` and for the
+recurrent families — or against the static lockstep baseline
+(``--mode static``), and reports throughput and latency percentiles.
+Weights are random, from a seeded ``torch.Generator``.  ``--attn-impl
+paged`` runs the decode attention through the paged-attention kernel; the
+recurrent families' scans always run through the WKV / SSD kernels, in
+the mode ``--scan-mode`` resolves.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full --device cuda \\
       --attn-impl paged --requests 16 --prompt-len 128 --gen-max 64
 
-  # reduced config on the CPU (the kernel's plain version stands in)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+      --full --device cuda --paged off --scan-mode chunk --spec-depth 2
+
+  # reduced config on the CPU (the kernels' plain versions stand in)
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --dtype float32 --attn-impl paged --spec-depth 2
 """
@@ -17,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import numpy as np
 import torch
@@ -25,7 +33,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.policy import RegionConfig, RegionPlan
 from repro_torch.models import model as model_mod
 from repro_torch.serve.engine import Engine, ServeConfig
-from repro_torch.serve.scheduler import Request
+from repro_torch.serve.scheduler import Request, RequestState, summarize
 
 
 def build_trace(args, vocab_size: int) -> list[Request]:
@@ -45,6 +53,32 @@ def build_trace(args, vocab_size: int) -> list[Request]:
         reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=gen,
                             arrival_s=float(arrivals[i])))
     return reqs
+
+
+def run_static(engine: Engine, reqs: list[Request], slots: int) -> dict:
+    """Lockstep baseline: group FIFO into batches of ``slots``, wait for the
+    whole group to arrive, decode everyone for the group's longest
+    budget."""
+    t0 = time.perf_counter()
+    for i in range(0, len(reqs), slots):
+        group = reqs[i:i + slots]
+        wait = max(r.arrival_s for r in group) - (time.perf_counter() - t0)
+        if wait > 0:
+            time.sleep(wait)
+        prompts = np.stack([r.prompt for r in group])
+        n_steps = max(r.max_new_tokens for r in group)
+        t_gen0 = time.perf_counter() - t0
+        res = engine.generate(prompts, n_steps)
+        out = res["tokens"].cpu().numpy()
+        t = time.perf_counter() - t0
+        # the group's first tokens land right after its prefill — TTFT is
+        # prefill latency, not group completion
+        for j, r in enumerate(group):
+            r.out_tokens = out[j, :r.max_new_tokens].tolist()
+            r.t_first = t_gen0 + res["prefill_s"]
+            r.t_done = t
+            r.state = RequestState.DONE
+    return {"requests": reqs, "stats": summarize(reqs)}
 
 
 def profile_serve(engine: Engine, reqs: list[Request],
@@ -111,7 +145,8 @@ def main(argv=None):
                     default="bfloat16", help="weight and KV-pool dtype")
     ap.add_argument("--mode", choices=("continuous", "static"),
                     default="continuous",
-                    help="'static' (lockstep generate()) is not ported yet")
+                    help="continuous batching, or the static lockstep "
+                         "generate() baseline")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-min", type=int, default=4)
@@ -120,9 +155,11 @@ def main(argv=None):
                     default="poisson")
     ap.add_argument("--rate", type=float, default=20.0,
                     help="arrival rate, requests/s (poisson/staggered)")
-    ap.add_argument("--slots", type=int, default=4, help="KV pool width")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="KV pool width / static batch width")
     ap.add_argument("--paged", choices=("auto", "on", "off"), default="auto",
-                    help="'off' (the slot pool) is not ported yet")
+                    help="paged KV pool (auto: wherever the family "
+                         "supports it); off: the slot pool")
     ap.add_argument("--attn-impl", choices=("gather", "paged"),
                     default="gather",
                     help="decode attention: gather pages + einsum, or the "
@@ -150,6 +187,13 @@ def main(argv=None):
                     choices=("auto", "0", "1", "2", "3", "4"),
                     help="speculative decode draft depth per pool step "
                          "(greedy only; 'auto' = the plan's knob, unset = 0)")
+    ap.add_argument("--scan-mode", default="auto",
+                    choices=("auto", "chunk", "fused_recurrent"),
+                    help="recurrent scan kernel for ssm/hybrid slot-pool "
+                         "families: 'chunk' (matmul-form chunked scan) or "
+                         "'fused_recurrent' (the sequential recurrence) "
+                         "for both phases; 'auto' = chunk for prefill, "
+                         "fused for decode")
     ap.add_argument("--tp", default="1", choices=("1", "2", "4", "auto"),
                     help="tensor-parallel degree; only 1 is ported yet")
     ap.add_argument("--max-len", type=int, default=0,
@@ -186,6 +230,7 @@ def main(argv=None):
                     dtree=args.dtree or None, serve_cfg=ServeConfig(
         max_len=max_len, temperature=args.temperature, seed=args.seed,
         max_slots=args.slots, eos_id=args.eos_id, paged=args.paged,
+        scan_mode=args.scan_mode,
         page_size=args.page_size, kv_pages=args.kv_pages,
         prefill_chunk=args.prefill_chunk,
         reservation=args.reservation, mem_watermark=args.mem_watermark,
@@ -196,10 +241,30 @@ def main(argv=None):
         deadline_s=args.deadline_s, max_queue=args.max_queue,
         chaos_rate=args.chaos_rate, chaos_seed=args.chaos_seed))
 
+    # explicit serve knobs must route or reject, never silently drop: on
+    # the slot pool chunked prefill and speculation need recurrent state
+    recurrent = cfg.family in ("ssm", "hybrid") and not cfg.swa_window
+    if args.scan_mode != "auto" and not recurrent:
+        ap.error(f"--scan-mode {args.scan_mode}: only the recurrent "
+                 f"families (ssm/hybrid) have a chunk/fused kernel "
+                 f"choice; {args.arch} is family={cfg.family!r}")
+    if (args.mode == "continuous" and not engine._use_paged()
+            and not recurrent):
+        if args.prefill_chunk > 0:
+            ap.error(f"--prefill-chunk: chunked prefill on the slot pool "
+                     f"requires a recurrent family (ssm/hybrid, no "
+                     f"sliding window); {args.arch} is "
+                     f"family={cfg.family!r}")
+        if args.spec_depth not in ("auto", "0"):
+            ap.error(f"--spec-depth {args.spec_depth}: the slot pool can "
+                     f"only roll back rejected drafts via recurrent-state "
+                     f"snapshots (ssm/hybrid, no sliding window); "
+                     f"{args.arch} is family={cfg.family!r}")
+
     reqs = build_trace(args, cfg.vocab_size)
     if args.mode == "static":
-        engine.generate(None, args.gen_max)         # raises: not ported
-    if args.profile:
+        res = run_static(engine, reqs, args.slots)
+    elif args.profile:
         engine.serve(build_trace(args, cfg.vocab_size))     # warm-up
         res = profile_serve(engine, reqs)
     else:
@@ -217,6 +282,8 @@ def main(argv=None):
           f"{s['tok_per_s']:.1f} tok/s  "
           f"p50 {s['latency_p50_s']*1e3:.0f} ms  "
           f"p99 {s['latency_p99_s']*1e3:.0f} ms")
+    if args.mode == "static":
+        return res
     fl = res["failures"]
     hs = res["health"]
     if any(fl.get(k, 0) for k in ("failed", "expired", "rejected", "retries")):
@@ -225,10 +292,23 @@ def main(argv=None):
               f"health={hs.get('state', 'n/a')} "
               f"fallbacks={hs.get('fallbacks', 0)}")
     pool = engine._pool
-    print(f"[paged] attn={args.attn_impl} page_size={pool.page_size} "
-          f"pages={pool.n_pages} pool={pool.hbm_bytes()/2**20:.1f} MiB "
-          f"high-water={pool.high_water_bytes()/2**20:.1f} MiB "
-          f"({pool.allocator.high_water} pages) leaks={res['page_leaks']}")
+    if engine._paged:
+        print(f"[paged] attn={args.attn_impl} page_size={pool.page_size} "
+              f"pages={pool.n_pages} pool={pool.hbm_bytes()/2**20:.1f} MiB "
+              f"high-water={pool.high_water_bytes()/2**20:.1f} MiB "
+              f"({pool.allocator.high_water} pages) "
+              f"leaks={res['page_leaks']}")
+    else:
+        mem = res["memory"]
+        print(f"[pool] slots={pool.n_slots} "
+              f"slot={mem['slot_bytes']/2**20:.2f} MiB "
+              f"pool={mem['hbm_bytes']/2**20:.1f} MiB "
+              f"high-water={mem['high_water_bytes']/2**20:.1f} MiB "
+              f"({mem['high_water_slots']} slots)")
+        if recurrent:
+            print(f"[scan] mode={args.scan_mode} resolved: prefill="
+                  f"{engine.scan_mode_for(engine.plan, 'prefill')} "
+                  f"decode={engine.scan_mode_for(engine.plan)}")
     sp = res["spec"]
     if sp["max_depth"] > 0:
         print(f"[spec] depth={sp['max_depth']} committed "
@@ -242,7 +322,7 @@ def cli(argv=None) -> int:
     ended FAILED / EXPIRED / REJECTED.  An exception escaping ``serve()``
     (an engine abort, a feature not ported yet) propagates."""
     res = main(argv)
-    fl = res["failures"]
+    fl = res.get("failures", {})
     bad = sum(fl.get(k, 0) for k in ("failed", "expired", "rejected"))
     if bad:
         print(f"[exit] {bad} request(s) not served", file=sys.stderr)

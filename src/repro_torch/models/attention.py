@@ -1,11 +1,13 @@
-"""Attention on PyTorch: full-sequence causal (train / forward), and the
-paged KV pool's decode and chunked-prefill steps.
+"""Attention on PyTorch: full-sequence causal (train / forward / prefill),
+the slot pool's KV-cache decode, and the paged KV pool's decode and
+chunked-prefill steps.
 
-The paged pool's K/V tensors are updated **in place** (``index_put_``):
-the JAX package donates the page buffers to each step, and mutating the
-pool's own tensors is the PyTorch form of the same contract — the pool
+K/V caches and page pools are updated **in place** (``index_put_``): the
+JAX package donates the cache buffers to each step, and mutating the
+cache's own tensors is the PyTorch form of the same contract — a pool
 keeps the same tensor objects across steps, copy-on-write copies and
-rollbacks.
+rollbacks.  A caller that needs the old contents (a speculative snapshot)
+clones them first.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from repro_torch.core.policy import RegionPlan
 from repro_torch.core.regions import region
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Spec, apply_rope
+from repro_torch.models.layers import Spec, TensorSpec, apply_rope
 
 NEG_INF = -1e30
 
@@ -96,6 +98,146 @@ def apply_attention(cfg, p, x: torch.Tensor, plan: RegionPlan, *,
         attn = torch.einsum("bhgqk,bkhe->bqhge", probs, v)
         out = _out_proj(attn.reshape(B, S, cfg.n_heads, hd), p["wo"])
         return plan.constrain(out, rpath, ("batch", "seq", "embed"))
+
+
+# ---------------------------------------------------------------------------
+# KV cache (slot-pool decode)
+# ---------------------------------------------------------------------------
+
+
+def kv_cache_spec(cfg, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16):
+    """Cache shapes for one attention instance.  SWA uses a ring of window
+    size."""
+    size = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": TensorSpec(shape, dtype), "v": TensorSpec(shape, dtype)}
+
+
+def init_kv_cache(cfg, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16, device=None):
+    return {name: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for name, s in kv_cache_spec(cfg, batch, max_len,
+                                         dtype).items()}
+
+
+def _is_ring(cfg, cache) -> bool:
+    return bool(cfg.swa_window) and cache["k"].shape[1] == cfg.swa_window
+
+
+def _cache_write(cache, k_new, v_new, start) -> None:
+    """Write T new rows per batch row b at ``start[b]..start[b]+T-1`` of
+    the cache, in place.  k_new/v_new: (B, T, KV, HD); start: (B,) long,
+    already inside [0, C - T]."""
+    B, T = k_new.shape[:2]
+    rows = start[:, None] + torch.arange(T, device=start.device)[None, :]
+    bidx = torch.arange(B, device=start.device)[:, None].expand(B, T)
+    cache["k"].index_put_((bidx, rows), k_new.to(cache["k"].dtype))
+    cache["v"].index_put_((bidx, rows), v_new.to(cache["v"].dtype))
+
+
+def _clamp_start(pos, C: int, T: int):
+    """Where T rows starting at ``pos`` land in a C-row cache: ``pos``
+    clamped into [0, C - T], as ``jax.lax.dynamic_update_slice`` clamps a
+    start index.  A parked pool slot keeps decoding and its position grows
+    past the cache; its rows then pile up at the end instead of indexing
+    out of bounds."""
+    return pos.long().clamp(0, C - T)
+
+
+def apply_attention_decode(cfg, p, x, cache, pos, plan: RegionPlan,
+                           name: str = "attn"):
+    """Decode a short block of T tokens against a KV cache.
+
+    x: (B, T, D); cache: {"k","v"}: (B, C, KV, HD), written in place;
+    pos: (B,) int32 — tokens already in each row's cache (rows decode at
+    their own positions, each with its own RoPE angles and mask).  T=1 is
+    the classic single-token step (SWA rings supported); T>1 writes T rows
+    at pos..pos+T-1 and attends under the staircase mask (chunked
+    state-prefill and speculative verify; rings unsupported).  Returns
+    (out (B, T, D), cache).
+    """
+    if x.shape[1] > 1:
+        return _attention_decode_block(cfg, p, x, cache, pos, plan, name)
+    with region(name) as rpath:
+        B = x.shape[0]
+        C = cache["k"].shape[1]
+        ring = _is_ring(cfg, cache)
+        positions = pos.long()[:, None]                       # (B, 1)
+        q, k_new, v_new = _qkv_rope(cfg, p, x, positions)
+        start = (torch.remainder(positions[:, 0], C) if ring
+                 else _clamp_start(pos, C, 1))
+        _cache_write(cache, k_new, v_new, start)
+        # absolute position of each cache row
+        idx = torch.arange(C, device=x.device)[None, :]
+        if ring:
+            # rows hold positions pos-C+1..pos once full; invalid before
+            k_pos = positions - torch.remainder(positions - idx, C)
+        else:
+            k_pos = idx.expand(B, C)
+        valid = (k_pos <= positions) & (k_pos >= 0)            # (B, C)
+        hd = q.shape[-1]
+        kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        qg = q.reshape(B, 1, kvh, g, hd)
+        s = torch.einsum("bqhge,bkhe->bhgqk", qg, cache["k"]) / math.sqrt(hd)
+        probs = _masked_softmax(s, valid[:, None, None, None, :], x.dtype)
+        attn = torch.einsum("bhgqk,bkhe->bqhge", probs, cache["v"])
+        out = _out_proj(attn.reshape(B, 1, cfg.n_heads, hd), p["wo"])
+        return plan.constrain(out, rpath, ("batch", "seq", "embed")), cache
+
+
+def _attention_decode_block(cfg, p, x, cache, pos, plan: RegionPlan,
+                            name: str = "attn"):
+    """T>1 branch of :func:`apply_attention_decode`: contiguous rows at
+    pos..pos+T-1 per batch row, staircase-masked (query i sees every cache
+    row through its own write).  Non-ring caches only."""
+    with region(name) as rpath:
+        B, T, _ = x.shape
+        C = cache["k"].shape[1]
+        if _is_ring(cfg, cache):
+            raise ValueError("multi-token decode unsupported on SWA ring "
+                             "caches")
+        positions = (pos.long()[:, None]
+                     + torch.arange(T, device=x.device)[None, :])  # (B, T)
+        q, k_new, v_new = _qkv_rope(cfg, p, x, positions)
+        _cache_write(cache, k_new, v_new, _clamp_start(pos, C, T))
+        k_pos = torch.arange(C, device=x.device)
+        valid = k_pos[None, None, :] <= positions[:, :, None]   # (B, T, C)
+        hd = q.shape[-1]
+        kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        qg = q.reshape(B, T, kvh, g, hd)
+        s = torch.einsum("bshge,bkhe->bhsgk", qg, cache["k"]) / math.sqrt(hd)
+        probs = _masked_softmax(s, valid[:, None, :, None, :], x.dtype)
+        attn = torch.einsum("bhsgk,bkhe->bshge", probs, cache["v"])
+        out = _out_proj(attn.reshape(B, T, cfg.n_heads, hd), p["wo"])
+        return plan.constrain(out, rpath, ("batch", "seq", "embed")), cache
+
+
+def prefill_kv(cfg, p, x, plan: RegionPlan, max_len: int,
+               name: str = "attn"):
+    """K/V of a full prompt written into a fresh cache: positions 0..S-1
+    (zero-padded to the cache length), or the last window of a ring with
+    position t at row t mod C."""
+    with region(name + ".fill"):
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)
+        k = _proj(x, p["wk"])
+        if cfg.qk_norm and "k_norm" in p:
+            k = _rms(k, p["k_norm"])
+        k = apply_rope(cfg, k, positions)
+        v = _proj(x, p["wv"])
+        C = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
+        ring = bool(cfg.swa_window) and C == cfg.swa_window
+        if S >= C:
+            k_c, v_c = k[:, S - C:], v[:, S - C:]
+            if ring:
+                # ring invariant: row j holds absolute position t, t mod C == j
+                k_c = torch.roll(k_c, S % C, dims=1)
+                v_c = torch.roll(v_c, S % C, dims=1)
+            return {"k": k_c.contiguous(), "v": v_c.contiguous()}
+        pad = (0, 0, 0, 0, 0, C - S)
+        return {"k": torch.nn.functional.pad(k, pad),
+                "v": torch.nn.functional.pad(v, pad)}
 
 
 # ---------------------------------------------------------------------------

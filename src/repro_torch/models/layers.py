@@ -72,6 +72,20 @@ def spec_param_count(spec_tree: Any) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(spec_tree))
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of one cache leaf (the counterpart of JAX's
+    ``ShapeDtypeStruct`` in the models' ``cache_spec``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def zeros_from_spec(spec_tree: Any, device=None) -> Any:
+    """A tree of zero tensors shaped by a tree of :class:`TensorSpec`."""
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=device), spec_tree)
+
+
 # ---------------------------------------------------------------------------
 # Norms / activations
 # ---------------------------------------------------------------------------

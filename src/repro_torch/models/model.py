@@ -3,6 +3,10 @@
   spec()                                    -> param Spec tree
   init(seed, dtype, device)                 -> params (nested dict of tensors)
   forward(params, batch, plan)              -> (logits, aux)
+  prefill(params, batch, plan, max_len)     -> (last logits, cache)
+  decode(params, cache, tokens, plan)       -> (logits, cache)
+  cache_spec(batch, max_len, dtype)         -> slot-cache TensorSpec tree
+  init_cache(batch, max_len, dtype, device) -> zeroed slot cache
   paged_cache_spec(n_pages, page_size)      -> page-pool shapes
   paged_decode(params, pages, tokens, block_tables, lengths, plan)
   paged_prefill_chunk(params, pages, tokens, block_table, base, plan)
@@ -29,9 +33,15 @@ def _family_module(cfg: ArchConfig):
     if cfg.family == "dense":
         from repro_torch.models import transformer as m
         return m
+    if cfg.family == "ssm":
+        from repro_torch.models import rwkv6 as m
+        return m
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba2 as m
+        return m
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 items "
-        f"10-12: recurrent families, MoE, enc-dec and VLM)")
+        f"11-12: MoE, enc-dec and VLM)")
 
 
 @dataclasses.dataclass
@@ -54,6 +64,27 @@ class Model:
                 final_logits_only: bool = False):
         return self.mod.forward(self.cfg, params, batch, plan or null_plan(),
                                 final_logits_only=final_logits_only)
+
+    # -- slot-pool serving (every family) ----------------------------------
+    def prefill(self, params, batch, plan: Optional[RegionPlan] = None,
+                max_len: int = 0):
+        return self.mod.prefill(self.cfg, params, batch, plan or null_plan(),
+                                max_len or batch["tokens"].shape[1])
+
+    def decode(self, params, cache, tokens,
+               plan: Optional[RegionPlan] = None):
+        return self.mod.decode_step(self.cfg, params, cache, tokens,
+                                    plan or null_plan())
+
+    def cache_spec(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16):
+        return self.mod.cache_spec(self.cfg, batch, max_len, dtype)
+
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: DeviceLike = None):
+        return self.mod.init_cache(self.cfg, batch, max_len, dtype,
+                                   resolve_device(device))
 
     # -- paged KV (full-KV attention families only) ------------------------
     @property
@@ -92,7 +123,9 @@ def params_from_numpy(tree: Any, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = torch.float32) -> Any:
     """The weight bridge: a param tree of numpy arrays (nested dicts under
     the JAX package's keys — ``embed/{tokens,unembed}``, layer-stacked
-    ``blocks/{attn,mlp,norm1,norm2}``, ``final_norm``) -> the same tree of
+    ``blocks/...`` (``{attn,mlp,norm1,norm2}``, rwkv6's ``{tmix,cmix,ln1,
+    ln2}``, zamba2's ``{ssm,norm}``), rwkv6's ``ln_in``, zamba2's unstacked
+    ``shared`` block, ``final_norm``) -> the same tree of
     tensors on ``device`` in ``dtype`` (``None`` keeps each array's own
     dtype; numpy has no bfloat16, so such arrays come over as float32)."""
     dev = resolve_device(device)

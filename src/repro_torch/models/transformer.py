@@ -3,8 +3,7 @@ PyTorch.  Parameters are stored layer-stacked (leading ``layers`` axis),
 the JAX package's layout, so its param tree bridges across unchanged
 (:func:`repro_torch.models.model.params_from_numpy`).
 
-Dense families only: MoE, the slot-pool ``decode_step`` and whole-prompt
-``prefill`` are not ported yet (ROADMAP queue 1 items 10 and 11).
+Dense families only: MoE is not ported yet (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -55,28 +54,32 @@ def _layer_params(blocks: Any, li: int) -> Any:
 
 
 def _block_loop(cfg, params, x, plan: RegionPlan, attn_apply):
-    """Shared per-layer body of every step (forward, paged decode, prefill
-    chunk): norm1 -> attention (``attn_apply(li, lp, h)``) -> norm2 -> mlp."""
+    """Shared per-layer body of every step (forward, slot decode and
+    prefill, paged decode, prefill chunk): norm1 -> attention
+    (``attn_apply(li, lp, h)`` returns (out, the layer's new cache)) ->
+    norm2 -> mlp.  Returns (x, {"l<i>": new cache})."""
     _require_dense(cfg)
     blocks = params["blocks"]
+    new_layers = {}
     for li in range(cfg.n_layers):
         lp = _layer_params(blocks, li)
         with region(f"layer{li}"):
             h = L.apply_norm(cfg, lp["norm1"], x)
-            x = x + attn_apply(li, lp, h)
+            a, new_layers[f"l{li}"] = attn_apply(li, lp, h)
+            x = x + a
             h = L.apply_norm(cfg, lp["norm2"], x)
             x = x + L.apply_mlp(cfg, lp["mlp"], h, plan)
             x = plan.constrain(x, f"layer{li}", ("batch", "seq", "embed"))
-    return x
+    return x, new_layers
 
 
 def forward(cfg, params, batch, plan: RegionPlan,
             final_logits_only: bool = False):
     """Full-sequence forward: returns (logits, aux_loss=0)."""
     x = L.apply_embed(cfg, params["embed"], batch["tokens"], plan)
-    x = _block_loop(cfg, params, x, plan,
-                    lambda li, lp, h: attn.apply_attention(cfg, lp["attn"],
-                                                           h, plan))
+    x, _ = _block_loop(cfg, params, x, plan,
+                       lambda li, lp, h: (attn.apply_attention(
+                           cfg, lp["attn"], h, plan), None))
     x = L.apply_norm(cfg, params["final_norm"], x)
     if final_logits_only:
         x = x[:, -1:]
@@ -84,7 +87,54 @@ def forward(cfg, params, batch, plan: RegionPlan,
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-# -- serving ----------------------------------------------------------------
+# -- serving: the slot pool -------------------------------------------------
+
+
+def cache_spec(cfg, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16) -> Any:
+    """Whole per-request K/V caches; ``pos`` is one int32 per batch row."""
+    one = attn.kv_cache_spec(cfg, batch, max_len, dtype)
+    return {"layers": {f"l{i}": one for i in range(cfg.n_layers)},
+            "pos": L.TensorSpec((batch,), torch.int32)}
+
+
+def init_cache(cfg, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> Any:
+    return L.zeros_from_spec(cache_spec(cfg, batch, max_len, dtype), device)
+
+
+def decode_step(cfg, params, cache, tokens, plan: RegionPlan):
+    """tokens: (B, 1) at each row's ``cache['pos']`` -> (logits (B, 1, V),
+    new cache); the K/V caches are written in place."""
+    pos = cache["pos"]
+    x = L.apply_embed(cfg, params["embed"], tokens, plan)
+    x, new_layers = _block_loop(
+        cfg, params, x, plan,
+        lambda li, lp, h: attn.apply_attention_decode(
+            cfg, lp["attn"], h, cache["layers"][f"l{li}"], pos, plan))
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.apply_unembed(cfg, params["embed"], x, plan)
+    return logits, {"layers": new_layers, "pos": pos + 1}
+
+
+def prefill(cfg, params, batch, plan: RegionPlan, max_len: int):
+    """Forward over the prompt, returning last-token logits (B, 1, V) and
+    a filled cache."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.apply_embed(cfg, params["embed"], tokens, plan)
+    x, caches = _block_loop(
+        cfg, params, x, plan,
+        lambda li, lp, h: (attn.apply_attention(cfg, lp["attn"], h, plan),
+                           attn.prefill_kv(cfg, lp["attn"], h, plan,
+                                           max_len)))
+    x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
+    logits = L.apply_unembed(cfg, params["embed"], x, plan)
+    pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return logits, {"layers": caches, "pos": pos}
+
+
+# -- serving: the paged pool ------------------------------------------------
 
 
 def paged_cache_spec(cfg, n_pages: int, page_size: int) -> Any:
@@ -107,11 +157,11 @@ def paged_decode_step(cfg, params, pages, tokens, block_tables, lengths,
     (logits (B, S, V), pages).
     """
     x = L.apply_embed(cfg, params["embed"], tokens, plan)
-    x = _block_loop(
+    x, _ = _block_loop(
         cfg, params, x, plan,
         lambda li, lp, h: attn.apply_attention_paged_decode(
             cfg, lp["attn"], h, pages["layers"][f"l{li}"],
-            block_tables, lengths, plan)[0])
+            block_tables, lengths, plan))
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.apply_unembed(cfg, params["embed"], x, plan)
     return logits, pages
@@ -131,5 +181,5 @@ def prefill_chunk_step(cfg, params, pages, tokens, block_table, base,
         cfg, params, x, plan,
         lambda li, lp, h: attn.apply_attention_paged_chunk(
             cfg, lp["attn"], h, pages["layers"][f"l{li}"],
-            block_table, base, plan)[0])
+            block_table, base, plan))
     return pages

@@ -76,8 +76,12 @@
   buffers instead): ``PagedKVPool.pages`` holds the same tensor objects for
   the pool's whole life.
 
-  The slot pool (``SlotKVPool``) of the JAX package, for recurrent and
-  sliding-window families, is not ported yet (ROADMAP queue 1 item 10).
+* :class:`SlotKVPool` backs the slot path of the engine (``paged='off'``,
+  and every family without a growing positional KV cache: the recurrent
+  ssm/hybrid families and sliding-window rings).  Whole per-request caches
+  sit on a slot axis; the decode step runs the model's ``decode_step``
+  batched over it.  Its tensors, like the page pool's, are updated in
+  place, and a speculative snapshot is a clone.
 """
 from __future__ import annotations
 
@@ -781,3 +785,125 @@ class PagedKVPool:
     def high_water_bytes(self) -> int:
         """Peak bytes of *live* pages — the trace's real KV working set."""
         return self.page_bytes() * self.allocator.high_water
+
+
+# ---------------------------------------------------------------------------
+# Slot (whole-cache) pool — recurrent/ring families and the legacy layout
+# ---------------------------------------------------------------------------
+
+
+class SlotKVPool:
+    """Fixed-shape pool of per-request caches with a free-slot list.
+
+    A per-request cache is the model's ``cache_spec(batch=1, ...)`` tree;
+    each leaf becomes a pooled tensor of ``n_slots`` rows in its place
+    (``pos`` becomes one position per slot).  The decode step reads the
+    whole pool as a batch of ``n_slots`` caches; :meth:`write` copies one
+    request's cache into its row, :meth:`update` the step's new caches
+    into every row — in place, so :attr:`pool` holds the same tensor
+    objects for the pool's whole life.  Freed slots keep their stale
+    contents; correctness relies on allocation always overwriting via
+    :meth:`write` (or :meth:`empty_slot_cache` for promptless requests),
+    never on zeroing.
+    """
+
+    def __init__(self, slot_cache_spec: Any, n_slots: int, *,
+                 device: torch.device):
+        if n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        self.n_slots = n_slots
+        self.slot_spec = slot_cache_spec
+        self.device = device
+        self.pool = tree_map(
+            lambda s: torch.zeros((n_slots,) + tuple(s.shape[1:]),
+                                  dtype=s.dtype, device=device),
+            slot_cache_spec)
+        self._free = list(range(n_slots - 1, -1, -1))   # pop() -> slot 0 first
+        self._active: set[int] = set()
+        self.high_water = 0                     # peak live slots
+
+    # -- slot accounting -----------------------------------------------------
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_active(self) -> int:
+        return len(self._active)
+
+    def alloc(self) -> Optional[int]:
+        """Claim a free slot (None when the pool is full)."""
+        if not self._free:
+            return None
+        slot = self._free.pop()
+        self._active.add(slot)
+        self.high_water = max(self.high_water, len(self._active))
+        return slot
+
+    def free(self, slot: int) -> None:
+        if slot not in self._active:
+            raise ValueError(f"slot {slot} is not active (double free?)")
+        self._active.remove(slot)
+        self._free.append(slot)
+
+    # -- cache data ----------------------------------------------------------
+    def write(self, slot: int, cache: Any) -> None:
+        """Copy one request's cache (batch 1) into the pool at ``slot``."""
+        if slot not in self._active:
+            raise ValueError(f"slot {slot} is not allocated")
+        for dst, src in zip(tree_leaves(self.pool), tree_leaves(cache)):
+            dst[slot:slot + 1].copy_(src)
+
+    def update(self, caches: Any) -> None:
+        """Copy the decode step's new caches (batch ``n_slots``) into the
+        pool; a leaf the step already wrote in place is skipped."""
+        for dst, src in zip(tree_leaves(self.pool), tree_leaves(caches)):
+            if src is not dst:
+                dst.copy_(src)
+
+    def empty_slot_cache(self) -> Any:
+        """A zeroed single-request cache (pos=0): the pre-prompt state."""
+        return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                              device=self.device),
+                        self.slot_spec)
+
+    def read(self, slot: int) -> Any:
+        """One slot's cache (batch 1), cloned out of the pool: safe across
+        later writes to the pool."""
+        return tree_map(lambda p: p[slot:slot + 1].clone(), self.pool)
+
+    # -- speculative snapshot/restore ----------------------------------------
+    # A recurrence has no length-truncation rollback: rejected draft tokens
+    # are already folded into the state.  The speculative contract for slot
+    # families is therefore copy-before-verify: ``snapshot`` clones the
+    # slot's whole cache, ``restore`` copies it back after a rejection, and
+    # the engine re-advances only the accepted tokens through the exact
+    # sequential recurrence.
+    def snapshot(self, slot: int) -> Any:
+        """A clone of every leaf of a slot's cache, taken before a verify
+        step.  It costs the slot's bytes: the recurrent state, plus for a
+        hybrid the per-slot K/V of every attention site at max_len rows,
+        so it grows with max_len."""
+        if slot not in self._active:
+            raise ValueError(f"slot {slot} is not allocated")
+        return self.read(slot)
+
+    def restore(self, slot: int, snap: Any) -> None:
+        """Copy a snapshot back: state after a rejected draft is exactly
+        the state before the draft (bitwise)."""
+        self.write(slot, snap)
+
+    # -- memory accounting ---------------------------------------------------
+    def slot_bytes(self) -> int:
+        """Bytes of one resident slot's cache across all leaves."""
+        return self.hbm_bytes() // self.n_slots
+
+    def hbm_bytes(self) -> int:
+        """Total pool footprint, every leaf."""
+        return int(sum(t.numel() * t.element_size()
+                       for t in tree_leaves(self.pool)))
+
+    def high_water_bytes(self) -> int:
+        """Peak bytes of *live* slots — the trace's real state working set
+        (the pool itself is fixed-shape; this is the occupancy peak)."""
+        return self.slot_bytes() * self.high_water

@@ -1,7 +1,12 @@
-"""Serving engine on PyTorch: continuous batching over the paged KV pool.
+"""Serving engine on PyTorch: static lockstep batching plus continuous
+batching over the paged KV pool or the slot pool.
+
+:meth:`Engine.generate` is the static path: prefill a ``(B, S)`` batch,
+then decode every row in lockstep for a fixed number of steps.
 
 :meth:`Engine.serve` admits requests FIFO from an arrival trace
-(:mod:`repro_torch.serve.scheduler`) into a :class:`PagedKVPool` under a
+(:mod:`repro_torch.serve.scheduler`).  Full-KV families run on the paged
+pool by default: a :class:`PagedKVPool` under a
 :class:`MemoryGovernor`; every pool step decodes all slots at once with a
 fixed shape — inactive slots decode against the null page and their
 samples are masked — so a request that finishes frees its pages at once
@@ -18,17 +23,27 @@ every slot, the longest drafted prefix matching the verify argmax chain
 commits, and the rejected tail is rolled back by length truncation —
 greedy output is token-identical to the non-speculative path.
 
+**The slot pool** (``paged='off'``, and every family whose per-request
+state does not grow with the sequence: the recurrent ssm/hybrid families
+and sliding-window rings): whole caches on a slot axis in a
+:class:`SlotKVPool`, the model's ``decode_step`` batched over the slots
+with a per-slot position, prompts prefilled one slot at a time (whole, or
+in ``prefill_chunk`` pieces interleaved with decode steps).  The
+recurrent scans run under a resolved ``scan_mode`` per phase (chunk for
+prefill, fused for decode, unless pinned), and speculation rolls a
+rejected draft back by state snapshot/restore and a re-advance over the
+accepted tokens.
+
 **Failure domains**: non-finite logits (the step's finite-logits guard)
 and injected faults retry per request with capped backoff and end in
 FAILED past ``max_retries``; a window of faults walks the health ladder
-HEALTHY -> DEGRADED -> SHEDDING, and a degraded engine pins the safe plan
-(no speculation, the gather attention path).
+HEALTHY -> DEGRADED -> SHEDDING, and a degraded paged engine pins the safe
+plan (no speculation, the gather attention path).
 
 Steps run eagerly; the step cache is keyed on the resolved knobs, as in
 the JAX package.  Not ported yet, and raising ``NotImplementedError`` when
 asked for: decision-tree plan selection and online retraining (ROADMAP
-queue 1 item 7), telemetry (item 9), the slot pool and the static
-``generate()`` (item 10), and tensor parallelism (item 14).
+queue 1 item 7), telemetry (item 9), and tensor parallelism (item 14).
 """
 from __future__ import annotations
 
@@ -36,7 +51,7 @@ import copy
 import dataclasses
 import json
 import time
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,7 +60,7 @@ from repro_torch import DeviceLike, make_generator, resolve_device
 from repro_torch.core.policy import RegionConfig, RegionPlan, null_plan
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
-from repro_torch.serve.cache import PagedKVPool, pages_for
+from repro_torch.serve.cache import PagedKVPool, SlotKVPool, pages_for
 from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.health import HealthMonitor, HealthPolicy
 from repro_torch.serve.memory import MemoryGovernor, MemoryPolicy
@@ -67,8 +82,8 @@ class ServeConfig:
     explore_eps: float = 0.0
     explore_budget: int = 64
     # -- paged KV pool -------------------------------------------------------
-    paged: str = "auto"         # "auto"/"on": the paged pool; "off" (the
-                                # slot pool) is not ported (item 10)
+    paged: str = "auto"         # "auto": paged wherever the family supports
+                                # it; "on": require it; "off": slot pool
     page_size: int = 0          # tokens per KV page (0 = the plan's
                                 # attn-region page_size knob, else 16)
     kv_pages: int = 0           # total pages incl. the null page (0 = the
@@ -89,6 +104,13 @@ class ServeConfig:
     spec_depth: int = -1        # draft tokens per pool step: -1 = auto (the
                                 # plan's attn-region spec_depth knob); 0 =
                                 # off; N>0 fixed
+    # -- recurrent scan mode (slot pool, ssm/hybrid families) ----------------
+    scan_mode: str = "auto"     # wkv/ssd kernel variant: "chunk" /
+                                # "fused_recurrent" pin it for both phases;
+                                # "auto" = the plan's scan-region knob,
+                                # unset = chunk for prefill, fused for
+                                # decode.  Greedy output agrees across
+                                # modes (f32 reassociation only)
     # -- tensor parallelism (degrees > 1 not ported: item 14) ----------------
     tp: int = 0                 # 0 = auto (plan knob, else 1); N pins it
     # -- failure domains + graceful degradation (serve/{faults,health}.py) ---
@@ -166,16 +188,13 @@ class Engine:
             raise _not_ported("online retraining / exploration", 7)
         if cfg.telemetry or cfg.trace_out or cfg.metrics_out or cfg.log_out:
             raise _not_ported("serve telemetry", 9)
-        if cfg.paged == "off" or not model.supports_paged:
-            raise _not_ported(
-                f"the slot pool (paged={cfg.paged!r}, family="
-                f"{model.cfg.family!r}, swa={model.cfg.swa_window})", 10)
         if cfg.tp > 1:
             raise _not_ported("tensor-parallel serving (tp > 1)", 14)
         self.params = L.tree_map(lambda t: t.to(self.device), params)
 
-        # -- paged pool state (built lazily by _ensure_pool) -----------------
-        self._pool: Optional[PagedKVPool] = None
+        # -- pool state (built lazily by _ensure_pool) -----------------------
+        self._pool = None                           # PagedKVPool / SlotKVPool
+        self._paged = False
         self.governor: Optional[MemoryGovernor] = None
         self._pool_steps: dict = {}                 # key -> (step, depth, tp)
         self._pool_step = None
@@ -193,8 +212,47 @@ class Engine:
         self._fallback = None                       # (step, depth, tp) to
                                                     # restore on recovery
 
-    def generate(self, prompts, n_steps: int, extra_inputs=None) -> dict:
-        raise _not_ported("the static lockstep generate()", 10)
+    def _sync(self) -> None:
+        """Wait for the device (host clocks around device work)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    # Static lockstep batching (the baseline path)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def generate(self, prompts, n_steps: int,
+                 extra_inputs: Optional[dict] = None) -> dict:
+        """prompts: (B, S) int -> generated (B, n_steps) int32 + stats."""
+        batch = {"tokens": torch.as_tensor(prompts, device=self.device)}
+        if extra_inputs:
+            batch.update(extra_inputs)
+        t0 = time.perf_counter()
+        logits, cache = self.model.prefill(self.params, batch, self.plan,
+                                           max_len=self.cfg.max_len)
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+
+        gen = make_generator(self.device, self.cfg.seed)
+        sample = lambda lg: sample_rows(  # noqa: E731
+            lg[:, -1, :].float(), gen, self.cfg.temperature)
+        tok = sample(logits)
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(n_steps - 1):
+            logits, cache = self.model.decode(self.params, cache,
+                                              tok[:, None], self.plan)
+            tok = sample(logits)
+            out.append(tok)
+        self._sync()
+        t_decode = time.perf_counter() - t0
+        B = batch["tokens"].shape[0]
+        return {
+            "tokens": torch.stack(out, dim=1),
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "decode_tok_per_s": B * max(n_steps - 1, 1) / max(t_decode, 1e-9),
+        }
 
     # ------------------------------------------------------------------
     # Knob resolution (ServeConfig pin > plan's attn-region knob > default)
@@ -208,24 +266,69 @@ class Engine:
         rc = self.plan.config_for("layer0/attn")
         return self.cfg.page_size or rc.page_size or 16
 
+    def _spec_pool_ok(self) -> bool:
+        """Whether the live pool can roll back a rejected draft: the paged
+        pool truncates lengths; the slot pool snapshots/restores fixed-size
+        recurrent state (ssm/hybrid without a sliding window).  A ring or a
+        growing slot KV cache has no such rollback."""
+        if self._paged:
+            return True
+        cfg = self.model.cfg
+        return cfg.family in ("ssm", "hybrid") and not cfg.swa_window
+
     def _spec_knob_live(self) -> bool:
         """Whether spec_depth is the plan's to choose: auto mode, greedy
-        sampling, non-MoE."""
-        return (self.cfg.spec_depth < 0 and self.cfg.temperature <= 0
+        sampling, non-MoE, on a pool that can roll a rejected draft back."""
+        return (self._spec_pool_ok() and self.cfg.spec_depth < 0
+                and self.cfg.temperature <= 0
                 and not self.model.cfg.n_experts)
 
     def spec_depth_for(self, plan: RegionPlan) -> int:
         """An explicit ServeConfig value pins it; in auto mode the plan's
         attn-region knob decides; unset means off.  A degraded engine
         (``_force_safe``) pins 0 ahead of everything, and temperature
-        sampling or MoE pin 0 regardless."""
+        sampling, MoE or a pool with no rollback pin 0 regardless."""
         if self._force_safe:
             return 0
         if self.cfg.temperature > 0 or self.model.cfg.n_experts:
             return 0
+        if not self._spec_pool_ok():
+            return 0
         if self.cfg.spec_depth >= 0:
             return self.cfg.spec_depth
         return max(plan.config_for("layer0/attn").spec_depth, 0)
+
+    # -- recurrent scan-mode resolution (slot pool, ssm/hybrid) --------------
+    def _scan_region(self) -> str:
+        """The region whose scan_mode knob steers the recurrent kernels:
+        rwkv6's time-mix for the ssm family, the mamba block for hybrid."""
+        return "layer0/tmix" if self.model.cfg.family == "ssm" else "layer0/ssm"
+
+    def scan_mode_for(self, plan: RegionPlan, phase: str = "decode") -> str:
+        """An explicit ServeConfig value pins it; in auto mode the plan's
+        scan-region knob decides; unset falls through to the phase
+        heuristic — "chunk" for prefill, "fused_recurrent" for decode.
+        Returns "" for families without the choice."""
+        if self._paged or self.model.cfg.family not in ("ssm", "hybrid"):
+            return ""
+        mode = self.cfg.scan_mode
+        if mode not in ("chunk", "fused_recurrent"):
+            mode = plan.config_for(self._scan_region()).scan_mode or "auto"
+        if mode == "auto":
+            mode = "chunk" if phase == "prefill" else "fused_recurrent"
+        return mode
+
+    def _plan_with_scan_mode(self, plan: RegionPlan, mode: str) -> RegionPlan:
+        """The plan a recurrent step or prefill runs under: ``plan`` with
+        the scan region's mode pinned to the resolved choice, so "auto"
+        never reaches the model code."""
+        if not mode:
+            return plan
+        plan2 = copy.deepcopy(plan)
+        rkey = "layer/tmix" if self.model.cfg.family == "ssm" else "layer/ssm"
+        base = plan2.region_configs.get(rkey, RegionConfig())
+        plan2.region_configs[rkey] = dataclasses.replace(base, scan_mode=mode)
+        return plan2
 
     def reservation_for(self, plan: RegionPlan) -> str:
         if self.cfg.reservation in ("full", "lazy"):
@@ -261,9 +364,11 @@ class Engine:
     def _step_cache_key(self, plan: RegionPlan) -> str:
         """Pool steps are cached by the plan's *step-affecting* content:
         pool-layout and memory-policy knobs are stripped, and the resolved
-        spec depth and tp degree ride alongside — a degraded engine's safe
-        step (depth pinned to 0) never collides with the healthy one cached
-        for the same plan."""
+        spec depth (and tp degree on the paged pool, decode scan mode on
+        the slot pool) ride alongside — a degraded engine's safe step
+        (depth pinned to 0) never collides with the healthy one cached for
+        the same plan, and "auto" shares the step of the mode it resolves
+        to."""
         raw = json.loads(plan.to_json())
         for rc in raw.get("regions", {}).values():
             for k in ("page_size", "reservation", "mem_watermark",
@@ -271,15 +376,40 @@ class Engine:
                 rc.pop(k, None)
             if not self._spec_knob_live():
                 rc.pop("spec_depth", None)
-        raw["tp"] = self.tp_for(plan)
+        if self._paged:
+            raw["tp"] = self.tp_for(plan)
+        else:
+            raw["scan"] = self.scan_mode_for(plan)
         raw["spec"] = self.spec_depth_for(plan)
         return json.dumps(raw, sort_keys=True)
 
     # ------------------------------------------------------------------
     # Pool and step
     # ------------------------------------------------------------------
+    def _use_paged(self) -> bool:
+        if self.cfg.paged == "off":
+            return False
+        if self.cfg.paged == "on":
+            if not self.model.supports_paged:
+                raise ValueError(
+                    f"paged KV unsupported for family "
+                    f"{self.model.cfg.family!r} (swa="
+                    f"{self.model.cfg.swa_window})")
+            return True
+        return self.model.supports_paged
+
     def _ensure_pool(self):
         if self._pool is not None:
+            return
+        self._paged = self._use_paged()
+        if not self._paged:
+            self._pool = SlotKVPool(
+                self.model.cache_spec(1, self.cfg.max_len,
+                                      self._param_dtype()),
+                self.cfg.max_slots, device=self.device)
+            built = self._build_pool_step(self.plan)
+            self._pool_step, self._spec_depth = built[0], built[1]
+            self._pool_steps[self._step_cache_key(self.plan)] = built
             return
         ps = self.page_size()
         max_pages = pages_for(self.cfg.max_len, ps)
@@ -310,6 +440,63 @@ class Engine:
         tok = sample_rows(logits, gen, temp)
         return torch.where(active, tok, torch.zeros_like(tok))
 
+    def _build_pool_step(self, plan: RegionPlan):
+        """One decode(+verify)+sample step over the whole slot pool: the
+        model's ``decode_step`` batched over the slot axis, each slot at its
+        own position (the JAX package vmaps a single-request step).
+
+        The plan's resolved ``spec_depth`` D sets the step's query width
+        S = D+1 as on the paged pool; only the recurrent families resolve
+        D > 0.  The resolved decode ``scan_mode`` is pinned into the plan
+        the step runs under.  The step carries the same health guard as the
+        paged step (inactive slots forced healthy).  Returns (step, D,
+        tp=1); the step returns ``(tokens (B, S), finite (B,), caches)``,
+        the caches to be copied into the pool."""
+        model, temp = self.model, self.cfg.temperature
+        depth = self.spec_depth_for(plan)
+        splan = self._plan_with_scan_mode(plan, self.scan_mode_for(plan))
+
+        def step(params, pool, tokens, active, gen):
+            logits, caches = model.decode(params, pool, tokens, splan)
+            B, S, V = logits.shape
+            flat = logits.float().reshape(B * S, V)
+            act = active.repeat_interleave(S)
+            finite = (torch.isfinite(flat).all(dim=-1).reshape(B, S)
+                      .all(dim=-1) | ~active)
+            toks = self._sample_pool(flat, act, gen, temp).reshape(B, S)
+            return toks, finite, caches
+
+        return step, depth, 1
+
+    def _slot_advance(self, cache, tokens: np.ndarray, mode: str):
+        """Fold ``tokens`` into one request's single-slot cache (logits
+        discarded) under scan mode ``mode``: a chunk of chunked state
+        prefill, or the re-advance over accepted tokens after a rejected
+        draft.  Exact widths: right-padding would be absorbed by
+        recurrent state."""
+        splan = self._plan_with_scan_mode(self.plan, mode)
+        _, cache = self.model.decode(
+            self.params, cache,
+            torch.as_tensor(np.asarray(tokens, np.int32)[None],
+                            device=self.device), splan)
+        return cache
+
+    def _prefill_slot(self, prompt: np.ndarray):
+        """Fill a fresh single-request cache with prompt[:-1]; the last
+        prompt token is returned to be fed through the pool decode step
+        (which then yields the first generated token).  Recurrent families
+        prefill under the resolved prefill-phase scan mode."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 2:
+            return self._pool.empty_slot_cache(), int(prompt[-1])
+        plan = self._plan_with_scan_mode(
+            self.plan, self.scan_mode_for(self.plan, phase="prefill"))
+        _, cache = self.model.prefill(
+            self.params, {"tokens": torch.as_tensor(prompt[None, :-1],
+                                                    device=self.device)},
+            plan, max_len=self.cfg.max_len)
+        return cache, int(prompt[-1])
+
     def _build_paged_step(self, plan: RegionPlan):
         """One decode(+verify)+sample step over the paged pool, natively
         batched over slots.  The plan's resolved ``spec_depth`` D sets the
@@ -337,11 +524,16 @@ class Engine:
         return step, depth, tp
 
     def _validate(self, req: Request):
+        cfg = self.model.cfg
+        if cfg.family == "ssm" or cfg.swa_window:
+            return                  # fixed-size state: no length limit
         need = req.prompt.size - 1 + req.max_new_tokens
         if need > self.cfg.max_len:
             raise ValueError(
                 f"request {req.rid}: prompt+generation ({need}) exceeds "
                 f"max_len ({self.cfg.max_len})")
+        if not self._paged:
+            return
         # a demand no admission can ever satisfy would make the FIFO head
         # spin forever — reject it up front
         n = pages_for(need, self._pool.page_size)
@@ -383,7 +575,8 @@ class Engine:
         for r in requests:
             sched.submit(r)
         sched.sort_queue()
-        res = self._serve_paged(sched)
+        res = (self._serve_paged(sched) if self._paged
+               else self._serve_slots(sched))
         out = {"requests": list(requests), **self.observability(requests)}
         out.update(res)
         return out
@@ -391,15 +584,24 @@ class Engine:
     def observability(self, requests: Optional[Sequence[Request]] = None
                       ) -> dict:
         """The per-subsystem ``summary()`` dicts behind one aggregate:
-        health, faults, memory and — when ``requests`` is passed — the
-        scheduler's trace stats and failure rollup."""
+        health, faults, memory (the governor's on the paged pool, slot
+        bytes and occupancy high-water on the slot pool) and — when
+        ``requests`` is passed — the scheduler's trace stats and failure
+        rollup."""
         obs: dict = {
             "health": self.health.summary(),
             "faults": (self.faults.summary() if self.faults is not None
                        else {"enabled": False, "injected_total": 0}),
         }
-        if self.governor is not None:
+        if self._paged and self.governor is not None:
             obs["memory"] = self.governor.summary()
+        elif self._pool is not None:
+            pool = self._pool
+            obs["memory"] = {"pool": "slot",
+                             "slot_bytes": pool.slot_bytes(),
+                             "hbm_bytes": pool.hbm_bytes(),
+                             "high_water_slots": pool.high_water,
+                             "high_water_bytes": pool.high_water_bytes()}
         if requests is not None:
             stats = summarize(requests)
             obs["stats"] = stats
@@ -428,8 +630,8 @@ class Engine:
     def _enter_fallback(self):
         """Pin the safe plan (spec0 / gather attn / tp1) through the
         regular step cache; the previous (step, depth, tp) is saved for
-        :meth:`_exit_fallback`."""
-        if self._fallback is not None:
+        :meth:`_exit_fallback`.  The slot pool has no safe plan to pin."""
+        if self._fallback is not None or not self._paged:
             return
         prev = (self._pool_step, self._spec_depth, 1)
         self._force_safe = True
@@ -481,6 +683,189 @@ class Engine:
             else:
                 pending[slot] = int(out_np[slot, c - 1])
         return consumed
+
+    def _serve_slots(self, sched: Scheduler) -> dict:
+        """The slot-pool loop: batched decode over whole-cache slots.
+
+        **Chunked state prefill** (``prefill_chunk`` > 0): the request
+        binds mid-prefill (the scheduler's PREFILL lifecycle), its state
+        accumulates in a host-held single-slot cache fed ``prefill_chunk``
+        tokens at a time under the resolved prefill-phase scan mode, and at
+        most ``prefill_chunks_per_step`` chunks run between pool steps.
+
+        **Speculative decode on recurrent state** (resolved ``spec_depth``
+        D > 0, greedy only): drafts come from :func:`draft_ngram`, one
+        S = D+1 verify step scores every slot at once.  A recurrence has no
+        length-truncation rollback, so each slot's state is snapshotted
+        (cloned) before the verify step and, when a draft is rejected,
+        re-advanced from the snapshot over exactly the inputs whose outputs
+        committed.
+
+        Faulted slots (non-finite logits, or chaos-injected) commit
+        nothing, restore their pre-step snapshot when one exists, and fail
+        terminally past ``max_retries``.  Besides the JAX package's keys the
+        result counts the model calls outside the pool steps
+        (``slot_calls``: prefill calls and re-advances)."""
+        pool = self._pool
+        dev = self.device
+        B = pool.n_slots
+        pending = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        prefills: list[Request] = []        # admitted, mid-prefill (FIFO)
+        pcaches: dict[int, Any] = {}        # slot -> host-held prefill cache
+        gen = make_generator(dev, self.cfg.seed)
+        t0 = time.perf_counter()
+        now = lambda: time.perf_counter() - t0  # noqa: E731
+        steps = 0
+        committed_total = 0                 # tokens committed by decode steps
+        slot_steps = 0                      # sum of stepped slots over steps
+        max_depth = 0                       # deepest speculation actually run
+        calls = {"prefill": 0, "readvance": 0}
+        pmode = self.scan_mode_for(self.plan, phase="prefill")
+        dmode = self.scan_mode_for(self.plan)
+
+        while not sched.done():
+            t = now()
+            # admit: every free slot takes the next arrived request (FIFO)
+            while pool.n_free and sched.has_ready(t):
+                req = sched.pop_ready(t)
+                hist = req.token_history()
+                slot = pool.alloc()
+                if self.cfg.prefill_chunk > 0 and hist.size >= 2:
+                    sched.bind_prefill(req, slot, now())
+                    pcaches[slot] = pool.empty_slot_cache()
+                    req.prefill_pos = 0
+                    prefills.append(req)
+                else:
+                    cache, first_tok = self._prefill_slot(hist)
+                    calls["prefill"] += hist.size >= 2
+                    pool.write(slot, cache)
+                    pending[slot] = first_tok
+                    sched.bind(req, slot, now())
+                    active[slot] = True
+            sched.shed_waiting(now(), self.cfg.max_queue,
+                               self.cfg.deadline_s)
+
+            # interleaved chunked prefill: a bounded budget per loop pass
+            budget = max(self.cfg.prefill_chunks_per_step, 1)
+            while budget > 0 and prefills:
+                req = prefills[0]
+                slot = req.slot
+                feed = req.token_history()[:-1]
+                chunk = feed[req.prefill_pos:
+                             req.prefill_pos + self.cfg.prefill_chunk]
+                pcaches[slot] = self._slot_advance(pcaches[slot], chunk,
+                                                   pmode)
+                calls["prefill"] += 1
+                budget -= 1
+                req.prefill_pos += chunk.size
+                if req.prefill_pos >= feed.size:
+                    pool.write(slot, pcaches.pop(slot))
+                    pending[slot] = int(req.token_history()[-1])
+                    sched.start_decode(req, now())
+                    active[slot] = True
+                    prefills.pop(0)
+
+            if not sched.active:
+                if prefills:
+                    continue                # keep prefilling
+                nxt = sched.next_arrival()
+                if nxt is None:
+                    break
+                dt = nxt - now()
+                if dt > 0:
+                    time.sleep(min(dt, 0.05))
+                continue
+
+            t_step0 = time.perf_counter()
+            D = self._spec_depth
+            S = D + 1
+            max_depth = max(max_depth, D)
+
+            toks_in = np.zeros((B, S), np.int32)
+            toks_in[:, 0] = pending
+            # snapshots make faults (and rejected drafts) recoverable; at
+            # D=0 with no injector a non-finite retry would recompute the
+            # identical garbage anyway, so the copies are skipped
+            snaps: dict[int, Any] = {}
+            if D or self.faults is not None:
+                for slot, req in sched.active.items():
+                    if D:
+                        toks_in[slot, 1:] = draft_ngram(req.token_history(),
+                                                        D)
+                    snaps[slot] = pool.snapshot(slot)
+            out, finite, caches = self._pool_step(
+                self.params, pool.pool, torch.as_tensor(toks_in, device=dev),
+                torch.as_tensor(active, device=dev), gen)
+            pool.update(caches)
+            steps += 1
+            out_np = out.cpu().numpy()
+            finite_np = finite.cpu().numpy()
+
+            # per-step health guard + acceptance walk (paged semantics on
+            # the slot pool): a faulted slot commits nothing and retries
+            # from its pre-step snapshot; draft i is valid iff it equals
+            # the verify argmax after draft i-1 (and every earlier draft
+            # held) — the longest such prefix commits
+            faulted: set[int] = set()
+            for slot in list(sched.active):
+                if not bool(finite_np[slot]):
+                    faulted.add(slot)
+            if self.faults is not None:
+                for slot in list(sched.active):
+                    if slot not in faulted and self.faults.fire("logits.nan"):
+                        faulted.add(slot)
+            n_cand = np.ones((B,), np.int32)
+            slot_steps += len(sched.active)
+            for slot in list(sched.active):
+                req = sched.active[slot]
+                if slot in faulted:
+                    n_cand[slot] = 0
+                    req.retries += 1
+                    req.fail_streak += 1
+                    had_snap = slot in snaps
+                    if had_snap:
+                        pool.restore(slot, snaps.pop(slot))
+                    if (req.fail_streak > self.health.policy.max_retries
+                            or not had_snap):
+                        # no snapshot means no injector and no drafts: the
+                        # NaN is the model's own deterministic blowup — a
+                        # retry would recompute it bit for bit
+                        pool.free(slot)
+                        active[slot] = False
+                        pending[slot] = 0
+                        sched.fail(req, now(),
+                                   "non-finite logits on slot pool")
+                    continue
+                req.fail_streak = 0
+                a = 0
+                while a < D and toks_in[slot, a + 1] == out_np[slot, a]:
+                    a += 1
+                n_cand[slot] = a + 1
+            consumed = self._commit_tokens(sched, out_np, n_cand, pending,
+                                           active, now(),
+                                           lambda slot, _req: pool.free(slot))
+            committed_total += sum(consumed.values())
+            if D:
+                for slot, c in consumed.items():
+                    if slot in sched.active and c < S:
+                        # rejected tail: the state already absorbed the bad
+                        # drafts — re-advance the pre-step snapshot over
+                        # exactly the c accepted inputs, the state a
+                        # sequential decode of the committed tokens holds
+                        pool.write(slot, self._slot_advance(
+                            snaps[slot], toks_in[slot, :c], dmode))
+                        calls["readvance"] += 1
+            dt_step = time.perf_counter() - t_step0
+            self.health.note_step(dt_step, n_slot_faults=len(faulted))
+        return {"steps": steps,
+                "slot_calls": calls,
+                "spec": {"committed_tokens": committed_total,
+                         "slot_steps": slot_steps,
+                         "max_depth": max_depth,
+                         "accepted_drafts": committed_total - slot_steps,
+                         "tokens_per_step":
+                             committed_total / max(steps, 1)}}
 
     def _serve_paged(self, sched: Scheduler) -> dict:
         """The paged-pool loop: governor-mediated admission (full or lazy

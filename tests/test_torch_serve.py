@@ -11,7 +11,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro.configs.registry import get_config as jget_config
 from repro.core.policy import RegionConfig as JRegionConfig
@@ -211,18 +210,22 @@ def test_page_allocator_matches_jax_under_random_ops():
 
 def test_features_outside_the_slice_raise(models):
     """Features not ported yet raise NotImplementedError naming their
-    ROADMAP item — never silently dropped."""
+    ROADMAP item — never silently dropped.  (The slot pool, paged='off',
+    and the static generate() are ported: tests/test_torch_slot_serve.py.)"""
     _, _, model, tparams = models
     bad = [dict(online_retrain=True), dict(telemetry=True),
-           dict(trace_out="t.json"), dict(paged="off"), dict(tp=2)]
+           dict(trace_out="t.json"), dict(tp=2)]
     for kw in bad:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(model, tparams, serve_cfg=ServeConfig(**kw), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(model, tparams, dtree=object(), device="cpu")
-    eng = Engine(model, tparams, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.generate(torch.zeros((1, 4), dtype=torch.int32), 2)
+    for arch in ("qwen2-moe-a2.7b", "whisper-large-v3"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build(get_config(arch).reduced())
+    with pytest.raises(ValueError, match="paged KV unsupported"):
+        Engine(build(get_config("rwkv6-3b").reduced()), {},
+               serve_cfg=ServeConfig(paged="on"), device="cpu").serve([])
     tp2 = RegionPlan(region_configs={"layer/attn": RegionConfig(tp_degree=2)})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(model, tparams, plan=tp2, device="cpu").serve(
