@@ -13,12 +13,25 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
 2. kernel: each CUDA kernel against its plain PyTorch version on the card,
    at the main paths' shapes, with the kernel's time, the plain version's
    time, one library call's time where one exists, and the bound (the
-   least time the card could take for the same work).
+   least time the card could take for the same work, from
+   ``repro_torch.kernels.work``).  ``tuned_matmul`` and ``flash_attention``
+   are held at every shape and tile of the JAX package's kernel tests (and
+   the masking cases: S != Sk, rows that see no key), in f32 and bf16,
+   then timed at stablelm-1.6b's full width; their path, the
+   ``kernels.ops`` entry point (no model of either package calls them),
+   is then driven once at those shapes with the counts set to 0.
 3. stablelm-1.6b at full width: parity in f32 (one paged decode step
    through the kernel against the gather path: logits and greedy tokens),
    then the paged engine in bf16 with attn_impl='paged' at spec_depth 0
    and 2.  Every request must finish, the kernel's launches must equal
    decode steps x layers, no safe-plan fallback and no leaked page.
+   Then the paper loop on the same engine: the full-width bf16 paged
+   decode step counted per region on the meta device (top regions and
+   roofline terms; counting launches nothing and writes no page), a serve
+   with online retraining and exploration that saves its tree, and a
+   serve driven by that tree.  Every request must finish, no page may
+   leak, the corpus must fill, a retrain must run, the tree must replan,
+   and the paged kernel's launches must equal decode steps x layers.
 4. rwkv6-3b and zamba2-2.7b at full width: parity in f32 (one prefill and
    one decode step through the scan kernels against the plain scans:
    logits and greedy tokens), then the slot pool (paged='off') in bf16,
@@ -50,10 +63,6 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 ARCH = "stablelm-1.6b"
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, f32 outside the
-# tensor cores, bf16 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # kernel vs plain version: repro_torch.kernels.ref.KERNEL_TOL, (rtol, atol)
 # of f32 summation order plus, in bf16, half an ulp of the output's
 # rounding.  tests/test_torch_kernels.py shows that a truncating store,
@@ -85,6 +94,26 @@ SCAN_SHAPES = {
 # the families' scan widths (configs/rwkv6_3b.py, configs/zamba2_2_7b.py)
 WKV_H, WKV_N = 40, 64
 SSD_H, SSD_P, SSD_N = 80, 64, 64
+# tuned_matmul: the JAX package's kernel tests ((M, K, N), (bm, bn, bk)),
+# then the main width's timed call: 8 slots x a 256-token prefill chunk
+# against stablelm-1.6b's d_model x d_ff, at the default tiles
+MATMUL_CASES = [((128, 128, 128), (64, 64, 64)),
+                ((256, 512, 128), (128, 128, 128)),
+                ((64, 384, 256), (32, 128, 128))]
+MATMUL_TIMED = (2048, 2048, 5632)
+# flash_attention: the JAX package's kernel tests (B = H = 2; S, D, bq, bk
+# under each (causal, window)), then the masking cases, (S, Sk, D, bq, bk,
+# causal, window): S != Sk on absolute positions, a non-causal window that
+# sees keys past the query, and rows (qi >= Sk + window - 1) that see no
+# key at all
+ATTN_TESTS = [(128, 64, 64, 64), (256, 128, 128, 64), (128, 64, 32, 128)]
+ATTN_MASKS = [(True, 0), (False, 0), (True, 32)]
+ATTN_EXTRA = [(256, 128, 64, 64, 64, True, 16), (128, 256, 64, 32, 32,
+                                                   False, 16),
+              (256, 128, 64, 64, 32, False, 8)]
+# the timed calls: stablelm-1.6b's heads (32 of 64) at B 8, S 512, causal,
+# window 0 and 128, default tiles
+ATTN_TIMED = dict(B=8, S=512, H=32, D=64, windows=(0, 128))
 
 
 class SmokeFailure(RuntimeError):
@@ -162,22 +191,17 @@ def paged_inputs(torch, seed, B, S, KVH, G, HD, ps, MP, lengths, dtype):
                                                           lens.cuda()]
 
 
-def paged_work(q, block_tables, lengths, S, dtype_name):
-    """Bytes the function must move and operations it must do for these
-    inputs: q read and the output written once, the block tables and
-    lengths, and the K/V rows of the positions each slot's last query
-    sees; QK and PV are 2 * HD operations per visible (query, position)."""
+def paged_work(q, block_tables, lengths, S):
+    """The least time the card could take for a paged call on these inputs
+    (its lengths: the K/V of the positions each slot's last query sees),
+    and what bounds it (``repro_torch.kernels.work``)."""
+    from repro_torch.core.roofline import card_for_device
+    from repro_torch.kernels import work
     B, _, KVH, G, HD = q.shape
-    item = q.element_size()
-    lens = [int(x) for x in lengths.cpu()]
-    rows = sum(n + S - 1 for n in lens if n + S - 1 > 0)
-    bytes_ = (2 * q.numel() * item + rows * 2 * KVH * HD * item
-              + 4 * (block_tables.numel() + lengths.numel()))
-    ops = sum(4 * HD * (n + s) * KVH * G for n in lens for s in range(S))
-    t_bytes = bytes_ / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    nbytes, ops = work.paged_attention(
+        B, S, KVH, G, HD, q.element_size(), block_tables.shape[1],
+        0, lengths=[int(x) for x in lengths.cpu()])
+    return work.bound_ms(nbytes, ops, q.dtype, card_for_device(q.device))
 
 
 def kernel_phase(torch) -> dict:
@@ -222,7 +246,7 @@ def kernel_phase(torch) -> dict:
                     lib_ms = time_ms(
                         torch, lambda: paged_attention_library(*dense))
                     bound_ms, bound_by = paged_work(args[0], args[3], args[4],
-                                                    S, dname)
+                                                    S)
                     record = {
                         "name": "paged_attention_mq", "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/"
@@ -290,28 +314,15 @@ def scan_plain_call(name, args, chunk):
     return call
 
 
-def scan_work(name, B, T):
-    """The least time in ms the card could take for one scan call, and
-    what bounds it.  Bytes: every input read once, the output and final
-    state written once (f32).  Operations: the recurrence's own count per
-    step and (b, h), with a multiply-add counted as two and an exp as one
-    (WKV ~7 N^2, SSD ~5 P N + 2), over f32's 67 TFLOP/s.  The chunked
-    forms compute the same function: the chunk length only rearranges the
-    work, so it does not enter the bound."""
-    if name.startswith("wkv"):
-        H, N = WKV_H, WKV_N
-        nbytes = 4 * (5 * B * H * T * N + H * N + 2 * B * H * N * N)
-        ops = 7 * N * N * T
-    else:
-        H, P, N = SSD_H, SSD_P, SSD_N
-        nbytes = 4 * (2 * B * H * T * P + 2 * B * T * N + B * H * T + H
-                      + 2 * B * H * P * N)
-        ops = (5 * P * N + 2) * T
-    ops *= B * H
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S["float32"]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def scan_work(torch, name, B, T):
+    """The least time in ms the card could take for one scan call (f32),
+    and what bounds it (``repro_torch.kernels.work``: the chunked forms
+    compute the same function, so the chunk length does not enter)."""
+    from repro_torch.core.roofline import card_for_device
+    from repro_torch.kernels import work
+    nbytes, ops = (work.wkv(B, WKV_H, T, WKV_N) if name.startswith("wkv")
+                   else work.ssd(B, SSD_H, T, SSD_P, SSD_N))
+    return work.bound_ms(nbytes, ops, torch.float32, card_for_device("cuda"))
 
 
 def scan_kernel_phase(torch) -> dict:
@@ -344,7 +355,7 @@ def scan_kernel_phase(torch) -> dict:
                       f"plain version: {errs}")
             if i == 0:
                 plain_ms = time_ms(torch, plain, iters=5 if T > 64 else 30)
-                bound_ms, bound_by = scan_work(name, B, T)
+                bound_ms, bound_by = scan_work(torch, name, B, T)
                 records[name] = {
                     "name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
@@ -364,6 +375,270 @@ def scan_kernel_phase(torch) -> dict:
                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                     f"{bound_ms:.4f} ms ({bound_by}), library: none")
     return records
+
+
+def _dense_check(torch, name, got, want, dtype, what) -> float:
+    """Hold a kernel's output against its plain version's within
+    ref.KERNEL_TOL; returns the largest error."""
+    from repro_torch.kernels import ref
+    check(got.dtype == dtype and got.shape == want.shape,
+          f"{name} output {got.dtype} {tuple(got.shape)}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name} not finite")
+    err = float((got.float() - want).abs().max())
+    rtol, atol = ref.KERNEL_TOL[dtype]
+    log(f"[kernel] {name} {what}: max_abs_err={err:.3e} (tol {atol} + "
+        f"{rtol:.3g} x |plain|, max|plain|={float(want.abs().max()):.3f})")
+    check(ref.within_tol(got, want, dtype),
+          f"{name} {what} disagrees with its plain version: {err}")
+    return err
+
+
+def _randn(torch, rng, shape, std, dtype):
+    return torch.tensor(rng.standard_normal(shape) * std,
+                        dtype=torch.float32, device="cuda").to(dtype)
+
+
+def dense_kernel_phase(torch) -> dict:
+    """tuned_matmul and flash_attention against their plain versions at
+    every case of the JAX package's kernel tests and the masking cases
+    (f32 and bf16, within ref.KERNEL_TOL), then timed at stablelm-1.6b's
+    full width in both dtypes beside their plain versions, one library
+    call each and their bounds.  Returns the two kernels' records (the
+    bf16 calls; f32 timings are logged)."""
+    from library_yardsticks import (attention_library, dense_attention_inputs,
+                                    matmul_library)
+    from repro_torch.core.roofline import card_for_device
+    from repro_torch.kernels import ops, ref, work
+    rng = np.random.default_rng(21)
+    errs = {"tuned_matmul": 0.0, "flash_attention": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for (M, K, N), (bm, bn, bk) in MATMUL_CASES:
+            x = _randn(torch, rng, (M, K), 0.5, dtype)
+            y = _randn(torch, rng, (K, N), 0.5, dtype)
+            got = ops.matmul(x, y, bm=bm, bn=bn, bk=bk)
+            torch.cuda.synchronize()
+            errs["tuned_matmul"] = max(errs["tuned_matmul"], _dense_check(
+                torch, "tuned_matmul", got, ref.matmul(x, y), dtype,
+                f"{dtype} M={M} K={K} N={N} tiles=({bm},{bn},{bk})"))
+        cases = [(S, S, D, bq, bk, causal, window)
+                 for S, D, bq, bk in ATTN_TESTS
+                 for causal, window in ATTN_MASKS] + ATTN_EXTRA
+        for S, Sk, D, bq, bk, causal, window in cases:
+            q = _randn(torch, rng, (2, S, 2, D), 0.5, dtype)
+            k = _randn(torch, rng, (2, Sk, 2, D), 0.5, dtype)
+            v = _randn(torch, rng, (2, Sk, 2, D), 0.5, dtype)
+            got = ops.attention(q, k, v, causal=causal, window=window,
+                                block_q=bq, block_k=bk)
+            torch.cuda.synchronize()
+            want = ref.flash_attention(q, k, v, causal=causal, window=window)
+            errs["flash_attention"] = max(
+                errs["flash_attention"], _dense_check(
+                    torch, "flash_attention", got, want, dtype,
+                    f"{dtype} S={S} Sk={Sk} D={D} bq={bq} bk={bk} "
+                    f"causal={causal} window={window}"))
+    records = {}
+    c = card_for_device("cuda")
+    M, K, N = MATMUL_TIMED
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _randn(torch, rng, (M, K), 0.5, dtype)
+        y = _randn(torch, rng, (K, N), 0.5, dtype)
+        got = ops.matmul(x, y)
+        torch.cuda.synchronize()
+        err = _dense_check(torch, "tuned_matmul", got, ref.matmul(x, y),
+                           dtype, f"{dtype} M={M} K={K} N={N} default tiles")
+        ms = time_ms(torch, lambda: ops.matmul(x, y), iters=10)
+        plain_ms = time_ms(torch, lambda: ref.matmul(x, y), iters=10)
+        lib_ms = time_ms(torch, lambda: matmul_library(x, y), iters=10)
+        bound_ms, bound_by = work.bound_ms(
+            *work.matmul(M, N, K, x.element_size()), dtype, c)
+        shape = f"{str(dtype)[6:]} M={M} K={K} N={N} tiles=(128,128,128)"
+        log(f"[kernel] timed tuned_matmul {shape}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        records["tuned_matmul"] = {
+            "name": "tuned_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/tuned_matmul.cu",
+            "replaces": "src/repro/kernels/tuned_matmul.py:40",
+            "max_abs_err": max(errs["tuned_matmul"], err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "shape": shape}
+    B, S, H, D = (ATTN_TIMED[k] for k in "BSHD")
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in ATTN_TIMED["windows"]:
+            q, k, v = (_randn(torch, rng, (B, S, H, D), 1.0, dtype)
+                       for _ in range(3))
+            call = lambda: ops.attention(q, k, v, window=window)  # noqa
+            got = call()
+            torch.cuda.synchronize()
+            want = ref.flash_attention(q, k, v, window=window)
+            err = _dense_check(torch, "flash_attention", got, want, dtype,
+                               f"{dtype} B={B} S={S} H={H} D={D} causal "
+                               f"window={window} default tiles")
+            del want
+            dense = dense_attention_inputs(q, k, v, True, window)
+            ms = time_ms(torch, call, iters=10)
+            plain_ms = time_ms(torch, lambda: ref.flash_attention(
+                q, k, v, window=window), iters=5)
+            lib_ms = time_ms(torch, lambda: attention_library(*dense),
+                             iters=10)
+            bound_ms, bound_by = work.bound_ms(*work.attention(
+                B * H, S, S, D, q.element_size(), True, window), dtype, c)
+            shape = (f"{str(dtype)[6:]} B={B} S={S} H={H} D={D} causal "
+                     f"window={window} tiles=(128,128)")
+            log(f"[kernel] timed flash_attention {shape}: kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+            if window == 0:
+                records["flash_attention"] = {
+                    "name": "flash_attention", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:76",
+                    "max_abs_err": max(errs["flash_attention"], err),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms,
+                    "shape": shape}
+            del q, k, v, dense
+    return records
+
+
+def ops_path_phase(torch) -> dict:
+    """The path of tuned_matmul and flash_attention: the ``kernels.ops``
+    entry point (no model of either package calls them), driven once at
+    the timed shapes in both dtypes with every count set to 0 just before.
+    Returns the counts read just after."""
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    rng = np.random.default_rng(22)
+    M, K, N = MATMUL_TIMED
+    B, S, H, D = (ATTN_TIMED[k] for k in "BSHD")
+    inputs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs.append((_randn(torch, rng, (M, K), 0.5, dtype),
+                       _randn(torch, rng, (K, N), 0.5, dtype),
+                       [_randn(torch, rng, (B, S, H, D), 1.0, dtype)
+                        for _ in range(3)]))
+    torch.cuda.synchronize()
+    reset_launches()
+    for x, y, (q, k, v) in inputs:
+        ops.matmul(x, y)
+        for window in ATTN_TIMED["windows"]:
+            ops.attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    launched = {n: LAUNCHES[n] for n in ("tuned_matmul", "flash_attention")}
+    log(f"[ops] kernels.ops path at the timed shapes: launches {launched}")
+    for n, count in launched.items():
+        check(count > 0, f"{n} was never launched on its path")
+    return launched
+
+
+def loop_phase(torch, model, params, dev, serve=SERVE) -> None:
+    """The paper loop on the paged engine at full width (bf16): count the
+    decode step per region on the meta device, serve with online
+    retraining and exploration (spec depth, reservation, prefix cache and
+    tp on auto), save the tree, then serve with that tree.  At full width
+    the step's hottest regions are ``logits`` and the MLPs, so the tap
+    region (the hottest attention region among the top 16, else the
+    hottest region) is ``logits``, as in the JAX engine."""
+    from repro_torch.core import counters, roofline
+    from repro_torch.core.dtree import DecisionTree
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.scheduler import Request, RequestState
+    cfg = model.cfg
+    base = dict(max_len=serve["max_len"], max_slots=serve["max_slots"],
+                page_size=serve["page_size"],
+                prefill_chunk=serve["prefill_chunk"])
+    eng = Engine(model, params, plan=_plan("paged"), device=dev,
+                 serve_cfg=ServeConfig(**base))
+    eng._ensure_pool()
+    pages = L.tree_leaves(eng._pool.pages)
+    before_pages = [float(t.float().abs().sum()) for t in pages]
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    rc = counters.collect(eng._pool_step, *eng._step_args(eng._spec_depth))
+    t_count = time.perf_counter() - t0
+    the_card = roofline.card_for_device(dev)
+    rl = roofline.from_counters(rc.total, the_card)
+    dname = str(L.tree_leaves(params)[0].dtype)[6:]
+    log(f"[loop] counted the {cfg.name} {dname} paged decode step (B="
+        f"{serve['max_slots']}, S={eng._spec_depth + 1}) on the meta device "
+        f"in {t_count:.2f} s: flops={rc.total.flops:.4e} bytes="
+        f"{rc.total.bytes:.4e} ops={rc.total.ops}")
+    for r, f in rc.top_regions("flops", 5):
+        log(f"[loop] top region {r}: flops={f:.4e} "
+            f"bytes={rc.regions[r].bytes:.4e}")
+    log(f"[loop] roofline ({the_card.name}): compute "
+        f"{rl.compute_s * 1e3:.4f} ms, memory {rl.memory_s * 1e3:.4f} ms, "
+        f"bound {rl.bound_s * 1e3:.4f} ms ({rl.dominant})")
+    check(dict(LAUNCHES) == before, "counting launched a kernel")
+    check([float(t.float().abs().sum()) for t in pages] == before_pages,
+          "counting wrote a pool page")
+    del eng, pages
+
+    rng = np.random.default_rng(2)
+    n = serve["n_requests"]
+    plens = rng.integers(serve["prompt"][0], serve["prompt"][1] + 1, n)
+    gens = rng.integers(serve["gen"][0], serve["gen"][1] + 1, n)
+    prompts = [rng.integers(0, cfg.vocab_size, p).astype(np.int32)
+               for p in plens]
+    tree_path = ROOT / "build" / "smoke_tree.json"
+    for phase in ("online", "tree"):
+        if phase == "online":
+            eng = Engine(model, params, plan=_plan("paged"), device=dev,
+                         serve_cfg=ServeConfig(
+                             **base, online_retrain=True, retrain_interval=8,
+                             explore_eps=0.1))
+        else:
+            tree = DecisionTree.from_json(tree_path.read_text())
+            eng = Engine(model, params, plan=_plan("paged"), device=dev,
+                         dtree=tree, serve_cfg=ServeConfig(**base))
+        reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=int(g))
+                for i, (p, g) in enumerate(zip(prompts, gens))]
+        reset_launches()
+        res = eng.serve(reqs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launched = LAUNCHES["paged_attention_mq"]
+        s, at = res["stats"], res["autotune"]
+        for n_active, decisions in res["decisions"]:
+            log(f"[plan] {phase} load={n_active}: " + ", ".join(
+                f"{r}->{c}" for r, c in decisions))
+        log(f"[loop] {phase} serve: {s['n_done']}/{n} done, {s['tokens']} "
+            f"tokens in {s['wall_s']:.3f} s -> {s['tok_per_s']:.1f} tok/s, "
+            f"steps={res['steps']} tokens/step="
+            f"{res['spec']['tokens_per_step']:.2f} max_depth="
+            f"{res['spec']['max_depth']}, replans={len(res['decisions'])}, "
+            f"paged kernel launches={launched}, fallbacks="
+            f"{res['health']['fallbacks']}, leaked pages={res['page_leaks']}")
+        log(f"[loop] {phase} autotune: {json.dumps(at)}")
+        check(all(r.state is RequestState.DONE for r in reqs),
+              f"not all requests DONE: {[r.state.value for r in reqs]}")
+        check(res["page_leaks"] == 0 and eng._pool.leaked_pages() == 0,
+              "leaked pages")
+        check(res["health"]["fallbacks"] == 0, "safe-plan fallback ran")
+        # every decided plan overlays the base plan's attn_impl='paged'
+        # (no candidate of the menu changes it), so every decode step ran
+        # the paged kernel once per layer
+        check(all(json.loads(k)["regions"]["layer/attn"]["attn_impl"]
+                  == "paged" for k in eng._pool_steps),
+              "a decided plan left the paged kernel")
+        if dev.type == "cuda":
+            check(launched == res["steps"] * cfg.n_layers,
+                  f"paged kernel launches {launched} != decode steps "
+                  f"{res['steps']} x {cfg.n_layers} layers")
+        if phase == "online":
+            check(at["corpus_entries"] > 0 and len(eng.corpus) > 0,
+                  "the corpus stayed empty")
+            check(at["retrains"] >= 1, "no retrain was attempted")
+            check(eng.dtree is not None, "no tree was trained")
+            tree_path.parent.mkdir(parents=True, exist_ok=True)
+            tree_path.write_text(eng.dtree.to_json())
+            log(f"[loop] tree -> {tree_path.relative_to(ROOT)} (classes "
+                f"{eng.dtree.classes_})")
+        else:
+            check(len(res["decisions"]) >= 1, "the tree never replanned")
+        del eng
 
 
 # ---------------------------------------------------------------------------
@@ -647,16 +922,19 @@ def build_all(torch) -> None:
     """Build every kernel source at once (one nvcc process each), then load
     the libraries; log each build's registers, spills and shared memory."""
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import paged_attention as pa
-    names = ("paged_attention", "linear_scan")
+    from repro_torch.kernels import tuned_matmul as tm
+    names = ("paged_attention", "linear_scan", "tuned_matmul",
+             "flash_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         for name, fut in [(n, ex.submit(cuda_build.build, n))
                           for n in names]:
             fut.result()
-    pa.build()
-    ls.build()
+    for mod in (pa, ls, tm, fa):
+        mod.build()
     log(f"[build] {', '.join(n + '.cu' for n in names)} in "
         f"{time.perf_counter() - t0:.2f} s -> " + ", ".join(
             cuda_build.library_path(n).name for n in names))
@@ -693,6 +971,9 @@ def main() -> int:
     record = kernel_phase(torch)
     check(record is not None, "the timed kernel configuration never ran")
     scan_records = scan_kernel_phase(torch)
+    dense_records = dense_kernel_phase(torch)
+    for name, count in ops_path_phase(torch).items():
+        dense_records[name]["launches"] = count
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models import layers as L
@@ -710,6 +991,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = serve_phase(torch, model, params, dev)
     record["launches"] = launches["paged_attention_mq"]
+    loop_phase(torch, model, params, dev)
     del model, params
     torch.cuda.empty_cache()
 
@@ -721,7 +1003,9 @@ def main() -> int:
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [record, *scan_records.values()]}))
+    print(json.dumps({"kernels": [record, dense_records["tuned_matmul"],
+                                  dense_records["flash_attention"],
+                                  *scan_records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

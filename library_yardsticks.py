@@ -30,3 +30,31 @@ def dense_paged_inputs(q, k_pages, v_pages, block_tables, lengths):
 def paged_attention_library(qd, kd, vd, mask):
     """The same function as ``paged_attention_mq`` in one library call."""
     return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+
+
+def matmul_library(x, y):
+    """The same product as ``tuned_matmul`` in one library call, in the
+    inputs' dtype (TF32 stays off: the caller sets
+    ``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+    return torch.matmul(x, y)
+
+
+def dense_attention_inputs(q, k, v, causal: bool, window: int):
+    """A ``flash_attention`` call's inputs in the layout of PyTorch's fused
+    attention, (B, H, S, D), with its mask (S, Sk) as booleans (True =
+    attend).  Done once, outside any timed region."""
+    S, Sk = q.shape[1], k.shape[1]
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    tr = lambda t: t.transpose(1, 2).contiguous()  # noqa: E731
+    return tr(q), tr(k), tr(v), mask
+
+
+def attention_library(qd, kd, vd, mask):
+    """The same function as ``flash_attention`` in one library call."""
+    return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)

@@ -1,0 +1,248 @@
+"""Per-region performance counters (the libhpm/pmapi analog), on PyTorch.
+
+The JAX package parses the compiled step's post-SPMD HLO; nothing in
+PyTorch corresponds to it.  Here :func:`collect` runs the step itself on
+the **meta device** — every tensor argument moved there with
+``.to("meta")`` — under a ``TorchDispatchMode`` that sees each aten op as
+it is dispatched and attributes it to the region path the op runs under
+(:func:`repro_torch.core.regions.current_region`).  Like the JAX package's
+count from the compiled artifact, it runs nothing: no kernel launches, no
+pool page is written, and the numbers are the same on the CPU and on the
+card.
+
+  * flops — 2·M·N·K for ``mm``, ``bmm``, ``addmm``, ``baddbmm`` (and the
+    products ``einsum``/``matmul``/``linear`` decompose into), batch
+    included; one per output element for every other op.  View and
+    metadata ops are free, as ``parameter``/``bitcast``/``tuple`` are in
+    the HLO count.
+  * bytes — operand bytes plus output bytes per op.  In-place slice
+    writes (``index_put_``, ``copy_``, ``scatter``, ``index_copy``) count
+    twice the update, not the buffer; gathers of a slice (``index``,
+    ``index_select``, ``gather``, ``embedding``) twice the output — the
+    dynamic-update-slice and dynamic-slice rules of the HLO count.
+  * ops — one per counted op.  Collective fields stay 0: tensor-parallel
+    serving is not ported.
+  * The hand-written kernels are ``ctypes`` calls on ``data_ptr()``s,
+    invisible to a dispatch mode.  Their wrappers, handed meta tensors,
+    return an empty output and note their work from
+    :mod:`repro_torch.kernels.work` here as one op (:func:`note_work`),
+    counted from shapes only.
+
+Every number is per device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import defaultdict
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.core.regions import current_region
+
+
+@dataclasses.dataclass
+class Counters:
+    flops: float = 0.0
+    bytes: float = 0.0
+    collective_bytes: float = 0.0   # sum of shard bytes through collectives
+    link_bytes: float = 0.0         # ring-cost bytes through the busiest link
+    collective_ops: int = 0
+    ops: int = 0
+    prefix_hit_rate: float = 0.0    # serve-side channel (not from HLO):
+                                    # prefix-cache hits/lookups observed over
+                                    # the tap window, so the decider can see
+                                    # why mem_prefix_* classes earn reward
+    fault_rate: float = 0.0         # serve-side channel (not from HLO):
+                                    # HealthMonitor faulted-step fraction
+                                    # over the tap window, so the decider
+                                    # can learn degradation responses from
+                                    # the corpus like any other knob
+    step_latency_p99: float = 0.0   # serve-side channel (not from HLO):
+                                    # windowed p99 decode-step latency,
+                                    # quantized to coarse log10(1+ms)
+                                    # steps (corpus.bucket_log_ms) so the
+                                    # decider can learn from observed
+                                    # tail latency, not just tok/s
+    queue_delay: float = 0.0        # serve-side channel (not from HLO):
+                                    # mean admission wait over the tap
+                                    # window, same log-ms quantization
+
+    def scaled(self, mult: float) -> "Counters":
+        """A copy with flops/bytes terms scaled (e.g. by pool occupancy:
+        the serve-time decider attributes a fixed-shape step's measured
+        counters to the fraction of slots doing useful work).  Rates
+        (prefix_hit_rate, fault_rate) and latency channels
+        (step_latency_p99, queue_delay) are occupancy-invariant and
+        copied through."""
+        return Counters(flops=self.flops * mult, bytes=self.bytes * mult,
+                        collective_bytes=self.collective_bytes * mult,
+                        link_bytes=self.link_bytes * mult,
+                        collective_ops=self.collective_ops, ops=self.ops,
+                        prefix_hit_rate=self.prefix_hit_rate,
+                        fault_rate=self.fault_rate,
+                        step_latency_p99=self.step_latency_p99,
+                        queue_delay=self.queue_delay)
+
+    def add(self, other: "Counters", mult: float = 1.0,
+            skip_bytes: bool = False):
+        self.flops += other.flops * mult
+        if not skip_bytes:
+            self.bytes += other.bytes * mult
+        self.collective_bytes += other.collective_bytes * mult
+        self.link_bytes += other.link_bytes * mult
+        self.collective_ops += int(other.collective_ops * mult)
+        self.ops += int(other.ops * mult)
+
+
+@dataclasses.dataclass
+class RegionCounters:
+    """Per-region + total counters for one compiled step (per-device)."""
+    total: Counters
+    regions: Dict[str, Counters]
+    collective_census: Dict[str, int]
+    xla_flops: float = 0.0      # cost_analysis cross-check (scan bodies 1x)
+    xla_bytes: float = 0.0
+
+    def top_regions(self, key: str = "flops", n: int = 10):
+        items = [(r, getattr(c, key)) for r, c in self.regions.items() if r]
+        return sorted(items, key=lambda kv: -kv[1])[:n]
+
+
+_aten = torch.ops.aten
+
+#: products: flops = 2 x output elements x the contracted length
+_MATMULS = {
+    _aten.mm.default: lambda a: a[0].shape[-1],
+    _aten.bmm.default: lambda a: a[0].shape[-1],
+    _aten.addmm.default: lambda a: a[1].shape[-1],
+    _aten.baddbmm.default: lambda a: a[1].shape[-1],
+    _aten.mv.default: lambda a: a[0].shape[-1],
+    _aten.dot.default: lambda a: a[0].shape[-1],
+}
+
+#: in-place slice writes: bytes = 2 x the update (the operand at this index)
+_SLICE_WRITES = {"index_put_": 2, "_index_put_impl_": 2, "copy_": 1,
+                 "scatter_": 3, "scatter": 3, "index_copy_": 3,
+                 "index_copy": 3}
+
+#: gathers of a slice: bytes = 2 x the output
+_SLICE_READS = {"index", "index_select", "gather", "embedding"}
+
+#: factory ops that allocate without writing
+_FREE = {"empty", "empty_like", "empty_strided", "new_empty",
+         "new_empty_strided"}
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from _tensors(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from _tensors(o)
+
+
+def _nbytes(obj) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(obj))
+
+
+def _is_view(func) -> bool:
+    """Whether ``func`` returns an alias of an input without writing it."""
+    rets = func._schema.returns
+    if not rets:
+        return True
+    info = rets[0].alias_info
+    return info is not None and not info.is_write
+
+
+def op_counters(func, args, kwargs, out) -> Optional[Counters]:
+    """The counters of one dispatched aten op, or None when it is free."""
+    if func.namespace != "aten":
+        return None
+    name = func._schema.name.split("::")[-1]
+    if name in _FREE or _is_view(func):
+        return None
+    c = Counters(ops=1)
+    if func in _MATMULS:
+        c.flops = 2.0 * sum(t.numel() for t in _tensors(out)) \
+            * _MATMULS[func](args)
+        c.bytes = float(_nbytes(args) + _nbytes(out))
+    elif name in _SLICE_WRITES:
+        i = _SLICE_WRITES[name]
+        upd = args[i] if len(args) > i else next(
+            iter(kwargs.values()), None)
+        c.bytes = 2.0 * _nbytes(upd)
+    elif name in _SLICE_READS:
+        c.bytes = 2.0 * _nbytes(out)
+    else:
+        c.flops = float(sum(t.numel() for t in _tensors(out)))
+        c.bytes = float(_nbytes(args) + _nbytes(kwargs) + _nbytes(out))
+    return c
+
+
+class CountingMode(TorchDispatchMode):
+    """Attributes each dispatched aten op's counters to the region path it
+    runs under."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = Counters()
+        self.regions: Dict[str, Counters] = defaultdict(Counters)
+
+    def note(self, c: Counters) -> None:
+        self.total.add(c)
+        self.regions[current_region()].add(c)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        c = op_counters(func, args, kwargs, out)
+        if c is not None:
+            self.note(c)
+        return out
+
+
+_active: list = []
+
+
+def note_work(nbytes: float, ops: float) -> None:
+    """Note one hand-written kernel call's work (from
+    :mod:`repro_torch.kernels.work`) into the counting region as one op;
+    nothing when no count is running."""
+    if _active:
+        _active[-1].note(Counters(flops=float(ops), bytes=float(nbytes),
+                                  ops=1))
+
+
+def to_meta(obj):
+    """``obj`` with every tensor in it (nested dicts, lists, tuples) moved
+    to the meta device; anything else as it is."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to("meta")
+    if isinstance(obj, dict):
+        return {k: to_meta(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_meta(v) for v in obj)
+    return obj
+
+
+def collect(fn: Callable, *args: Any, **kwargs: Any) -> RegionCounters:
+    """Count ``fn(*args, **kwargs)`` per region without running it: its
+    tensor arguments go to the meta device, and every aten op it
+    dispatches is counted (:func:`op_counters`) under the region it runs
+    in.  ``fn`` must not synchronise with the host (``.item()``,
+    ``.cpu()``): a meta tensor has no value, so such a call raises."""
+    margs, mkwargs = to_meta(args), to_meta(kwargs)
+    mode = CountingMode()
+    _active.append(mode)
+    try:
+        with torch.no_grad(), mode:
+            fn(*margs, **mkwargs)
+    finally:
+        _active.pop()
+    return RegionCounters(total=mode.total, regions=dict(mode.regions),
+                          collective_census={})

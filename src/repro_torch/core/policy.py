@@ -139,3 +139,22 @@ class RegionPlan:
 def null_plan() -> RegionPlan:
     """Plan with every knob at its default."""
     return RegionPlan()
+
+
+def default_plan(mesh=None, kind: str = "train") -> RegionPlan:
+    """The "single global knob" baseline plan (paper's OMP_NUM_THREADS
+    analog): uniform DP(batch)+TP(ff/heads/vocab) rules everywhere, remat on
+    every layer for training.  ``mesh`` is accepted for the JAX package's
+    signature and ignored: a port plan carries no mesh."""
+    regions = {}
+    rules = dict(DEFAULT_RULES)
+    if kind == "train":
+        regions["layer"] = RegionConfig(remat=True)   # prefix-matches layerN
+        regions["enc"] = RegionConfig(remat=True)
+        regions["dec"] = RegionConfig(remat=True)
+        regions["shared_attn"] = RegionConfig(remat=True)
+    if kind == "decode":
+        rules["kv_seq"] = "model"
+        rules["heads"] = None
+        rules["kv_heads"] = None
+    return RegionPlan(rules=rules, region_configs=regions)

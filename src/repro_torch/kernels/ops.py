@@ -1,16 +1,34 @@
 """The wrappers the model calls, dispatching on the device of the tensors
 they are given: CPU tensors go to the plain version in :mod:`.ref`, CUDA
 tensors to the hand-written kernel — which launches or raises.  There is no
-fallback from one to the other.  Kernel knobs from ``RegionConfig`` (block
-sizes, the scan mode and chunk length) surface here as keyword
-arguments."""
+fallback from one to the other.  Meta tensors (the shape-only device the
+counters run a step on, :mod:`repro_torch.core.counters`) get an empty
+output of the right shape and dtype, and the call's work from
+:mod:`.work` is noted into the counting region as one op.  Kernel knobs
+from ``RegionConfig`` (block sizes, the scan mode and chunk length)
+surface here as keyword arguments."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import counters
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import linear_scan as _scan
 from repro_torch.kernels import paged_attention as _paged
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
+from repro_torch.kernels import tuned_matmul as _mm
+
+
+def _meta(shapes, dtype, work_done):
+    """The meta path of a wrapper: note ``work_done`` (bytes, ops) and
+    return empty meta tensors of ``shapes``."""
+    counters.note_work(*work_done)
+    outs = tuple(torch.empty(s, dtype=dtype, device="meta") for s in shapes)
+    return outs if len(outs) > 1 else outs[0]
+
+
+def _no_version(name, dev):
+    return ValueError(f"{name}: no version for device {dev}")
 
 
 def paged_attention_mq(q: torch.Tensor, k_pages: torch.Tensor,
@@ -23,11 +41,16 @@ def paged_attention_mq(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cuda":
         return _paged.paged_attention_mq(q, k_pages, v_pages, block_tables,
                                          lengths, block_k=block_k)
+    _paged.resolve_block_k(block_k, k_pages.shape[1])
     if q.device.type == "cpu":
-        _paged.resolve_block_k(block_k, k_pages.shape[1])
         return ref.paged_attention_mq(q, k_pages, v_pages, block_tables,
                                       lengths).to(q.dtype)
-    raise ValueError(f"paged_attention_mq: no version for device {q.device}")
+    if q.device.type == "meta":
+        B, S, KVH, G, HD = q.shape
+        return _meta([q.shape], q.dtype, work.paged_attention(
+            B, S, KVH, G, HD, q.element_size(), block_tables.shape[1],
+            k_pages.shape[1]))
+    raise _no_version("paged_attention_mq", q.device)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -70,7 +93,10 @@ def wkv(r, k, v, w, u, s0, *, mode: str = "fused_recurrent",
         if chunked:
             return ref.wkv_chunk(r, k, v, w, u, s0, chunk)
         return ref.wkv_linear_scan(r, k, v, w, u, s0)
-    raise ValueError(f"wkv: no version for device {r.device}")
+    if r.device.type == "meta":
+        B, T, H, N = r.shape
+        return _meta([r.shape, s0.shape], torch.float32, work.wkv(B, H, T, N))
+    raise _no_version("wkv", r.device)
 
 
 def ssd(x, b, c, dt, a, s0, *, mode: str = "fused_recurrent",
@@ -89,4 +115,48 @@ def ssd(x, b, c, dt, a, s0, *, mode: str = "fused_recurrent",
         if chunked:
             return ref.ssd_chunk(x, b, c, dt, a, s0, chunk)
         return ref.ssd_linear_scan(x, b, c, dt, a, s0)
-    raise ValueError(f"ssd: no version for device {x.device}")
+    if x.device.type == "meta":
+        B, T, H, P = x.shape
+        return _meta([x.shape, s0.shape], torch.float32,
+                     work.ssd(B, H, T, P, b.shape[-1]))
+    raise _no_version("ssd", x.device)
+
+
+def matmul(x, y, *, bm: int = 128, bn: int = 128, bk: int = 128):
+    """x (M, K) @ y (K, N) -> (M, N) in x's dtype, in ``(bm, bn, bk)``
+    tiles (clamped to the dims; they must divide them) with an f32
+    accumulator."""
+    M, N, K = _mm.check_shapes(x, y)
+    if x.device.type == "cuda":
+        return _mm.tuned_matmul(x, y, bm=bm, bn=bn, bk=bk)
+    _mm.resolve_tiles(M, N, K, bm, bn, bk)
+    if x.device.type == "cpu":
+        return ref.matmul(x, y).to(x.dtype)
+    if x.device.type == "meta":
+        return _meta([(M, N)], x.dtype,
+                     work.matmul(M, N, K, x.element_size()))
+    raise _no_version("matmul", x.device)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              block_q: int = 128, block_k: int = 128):
+    """q: (B, S, H, D), k/v: (B, Sk, H, D) model layout -> (B, S, H, D)
+    in q's dtype.  On CUDA the heads fold into the kernel layout
+    (B*H, S, D) and back, as the JAX package's ``ops.attention`` does."""
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    if q.device.type == "cuda":
+        fold = lambda t: t.transpose(1, 2).reshape(  # noqa: E731
+            B * H, t.shape[1], D).contiguous()
+        out = _flash.flash_attention(fold(q), fold(k), fold(v),
+                                     causal=causal, window=window,
+                                     bq=block_q, bk=block_k)
+        return out.reshape(B, H, S, D).transpose(1, 2)
+    _flash.resolve_tiles(S, Sk, block_q, block_k)
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal,
+                                   window=window).to(q.dtype)
+    if q.device.type == "meta":
+        return _meta([q.shape], q.dtype, work.attention(
+            B * H, S, Sk, D, q.element_size(), causal, window))
+    raise _no_version("attention", q.device)

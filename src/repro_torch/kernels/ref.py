@@ -24,6 +24,31 @@ def within_tol(got, want, dtype) -> bool:
     return bool(((got.float() - want).abs() <= atol + rtol * want.abs()).all())
 
 
+def matmul(x, y):
+    """(M, K) @ (K, N) -> (M, N) float32: the product in f32."""
+    return torch.matmul(x.float(), y.float())
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, S, H, D); k, v: (B, Sk, H, D) -> (B, S, H, D) float32: plain
+    masked softmax attention on absolute positions (query i sees key j
+    where ``i >= j`` when causal and ``i - j < window`` when window > 0).
+    Masked scores take the finite ``-1e30``, so a row that sees no key
+    gets a uniform softmax over every key."""
+    S, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhe,bkhe->bhqk", q.float(), k.float()) / math.sqrt(D)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhe->bqhe", p, v.float())
+
+
 def paged_attention_mq(q, k_pages, v_pages, block_tables, lengths):
     """Multi-query paged decode attention (the speculative verify step's
     attention).  q: (B, S, KVH, G, HD); pages: (P, ps, KVH, HD);

@@ -19,6 +19,22 @@ the mode ``--scan-mode`` resolves.
   # reduced config on the CPU (the kernels' plain versions stand in)
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --dtype float32 --attn-impl paged --spec-depth 2
+
+  # the paper loop: online retraining from a cold start, then serving
+  # with the saved tree
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --online-retrain --retrain-interval 8 --tree-out tree.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --dtree tree.json
+
+A decision tree (``--dtree``) switches on counter-driven plan selection:
+the decode step's per-region counters, scaled by the pool's occupancy,
+pick each hot region's knobs per load bucket (``[plan]`` lines).
+``--online-retrain`` closes the loop: measured step counters and tok/s
+rewards feed a corpus (``--corpus-out``), the tree is retrained every
+``--retrain-interval`` steps and hot-swapped (``--tree-out`` saves the
+final tree), and ``--explore-eps`` trials serve-only candidates now and
+then (``--no-explore`` keeps greedy output unchanged).
 """
 from __future__ import annotations
 
@@ -195,15 +211,44 @@ def main(argv=None):
                          "for both phases; 'auto' = chunk for prefill, "
                          "fused for decode")
     ap.add_argument("--tp", default="1", choices=("1", "2", "4", "auto"),
-                    help="tensor-parallel degree; only 1 is ported yet")
+                    help="tensor-parallel degree: clamps down to the "
+                         "visible devices and a kv-head divisor ('auto' = "
+                         "the plan's tp1/tp2/tp4 knob); a degree above 1 "
+                         "after the clamp is not ported yet")
     ap.add_argument("--max-len", type=int, default=0,
                     help="cache length (default: prompt+gen headroom)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--dtree", default="",
-                    help="decision-tree plan selection: not ported yet")
+                    help="DecisionTree json (from the autotuner corpus or "
+                         "--tree-out) that picks the plan per load bucket")
     ap.add_argument("--online-retrain", action="store_true",
-                    help="online retraining: not ported yet")
+                    help="close the paper loop online: tap measured step "
+                         "counters + tok/s rewards into a corpus, retrain "
+                         "the decision tree every --retrain-interval steps "
+                         "and hot-swap it (works from a cold start — no "
+                         "--dtree needed)")
+    ap.add_argument("--retrain-interval", type=int, default=32,
+                    help="decode steps between corpus flush / retrain "
+                         "attempts (with --online-retrain)")
+    ap.add_argument("--explore-eps", type=float, default=0.1,
+                    help="epsilon-greedy exploration rate over the "
+                         "serve-only candidate menu (with --online-retrain; "
+                         "0 keeps greedy output unchanged)")
+    ap.add_argument("--explore-budget", type=int, default=64,
+                    help="hard cap on exploration decisions per engine")
+    ap.add_argument("--no-explore", action="store_true",
+                    help="disable exploration (equivalent to "
+                         "--explore-eps 0)")
+    ap.add_argument("--corpus-in", default="",
+                    help="corpus JSONL to merge before serving (requires "
+                         "--online-retrain)")
+    ap.add_argument("--corpus-out", default="",
+                    help="write the accumulated observation corpus (JSONL) "
+                         "after serving (requires --online-retrain)")
+    ap.add_argument("--tree-out", default="",
+                    help="write the final (possibly online-retrained) "
+                         "decision tree JSON after serving")
     ap.add_argument("--telemetry", action="store_true",
                     help="serve telemetry: not ported yet")
     ap.add_argument("--deadline-s", type=float, default=0.0)
@@ -226,8 +271,13 @@ def main(argv=None):
     plan = RegionPlan(region_configs={"layer/attn": RegionConfig(
         attn_impl="paged" if args.attn_impl == "paged" else "")})
     max_len = args.max_len or args.prompt_len + args.gen_max + 1
+    dtree = None
+    if args.dtree:
+        from repro_torch.core.dtree import DecisionTree
+        with open(args.dtree) as f:
+            dtree = DecisionTree.from_json(f.read())
     engine = Engine(model, params, plan=plan, device=args.device,
-                    dtree=args.dtree or None, serve_cfg=ServeConfig(
+                    dtree=dtree, serve_cfg=ServeConfig(
         max_len=max_len, temperature=args.temperature, seed=args.seed,
         max_slots=args.slots, eos_id=args.eos_id, paged=args.paged,
         scan_mode=args.scan_mode,
@@ -237,7 +287,10 @@ def main(argv=None):
         max_preempts=args.max_preempts, prefix_cache=args.prefix_cache,
         spec_depth=-1 if args.spec_depth == "auto" else int(args.spec_depth),
         tp=0 if args.tp == "auto" else int(args.tp),
-        online_retrain=args.online_retrain, telemetry=args.telemetry,
+        online_retrain=args.online_retrain,
+        retrain_interval=args.retrain_interval,
+        explore_eps=0.0 if args.no_explore else args.explore_eps,
+        explore_budget=args.explore_budget, telemetry=args.telemetry,
         deadline_s=args.deadline_s, max_queue=args.max_queue,
         chaos_rate=args.chaos_rate, chaos_seed=args.chaos_seed))
 
@@ -261,6 +314,13 @@ def main(argv=None):
                      f"snapshots (ssm/hybrid, no sliding window); "
                      f"{args.arch} is family={cfg.family!r}")
 
+    if (args.corpus_in or args.corpus_out) and engine.corpus is None:
+        print("[autotune] warning: --corpus-in/--corpus-out need "
+              "--online-retrain (no corpus exists without it) — ignoring")
+    if args.corpus_in and engine.corpus is not None:
+        from repro_torch.autotune.corpus import Corpus
+        engine.corpus.merge(Corpus.load_jsonl(args.corpus_in))
+
     reqs = build_trace(args, cfg.vocab_size)
     if args.mode == "static":
         res = run_static(engine, reqs, args.slots)
@@ -269,6 +329,9 @@ def main(argv=None):
         res = profile_serve(engine, reqs)
     else:
         res = engine.serve(reqs)
+    for n_active, decisions in res.get("decisions", []):
+        print(f"[plan] load={n_active}: " + ", ".join(
+            f"{r}->{c}" for r, c in decisions))
 
     for r in reqs:
         tail = (f"latency {(r.t_done - r.arrival_s)*1e3:7.1f} ms"
@@ -307,13 +370,29 @@ def main(argv=None):
               f"({mem['high_water_slots']} slots)")
         if recurrent:
             print(f"[scan] mode={args.scan_mode} resolved: prefill="
-                  f"{engine.scan_mode_for(engine.plan, 'prefill')} "
-                  f"decode={engine.scan_mode_for(engine.plan)}")
+                  f"{engine.scan_mode_for(engine._decided_plan, 'prefill')} "
+                  f"decode={engine.scan_mode_for(engine._decided_plan)}")
     sp = res["spec"]
     if sp["max_depth"] > 0:
         print(f"[spec] depth={sp['max_depth']} committed "
               f"{sp['committed_tokens']} tokens in {res['steps']} steps "
               f"-> {sp['tokens_per_step']:.2f} tokens/step")
+    if args.online_retrain:
+        at = res["autotune"]
+        print(f"[autotune] retrains={at['retrains']} swaps={at['swaps']} "
+              f"rejected={engine.trainer.reject_count} "
+              f"explored={at['explored']} "
+              f"explore_fraction={at['explore_fraction']:.2f} "
+              f"corpus_entries={at['corpus_entries']} "
+              f"pre_swap_tok_s={at['pre_swap_tok_s']:.1f} "
+              f"post_swap_tok_s={at['post_swap_tok_s']:.1f}")
+    if args.corpus_out and engine.corpus is not None:
+        n = engine.corpus.save_jsonl(args.corpus_out)
+        print(f"[autotune] corpus -> {args.corpus_out} ({n} entries)")
+    if args.tree_out and engine.dtree is not None:
+        with open(args.tree_out, "w") as f:
+            f.write(engine.dtree.to_json())
+        print(f"[autotune] dtree -> {args.tree_out}")
     return res
 
 

@@ -34,6 +34,17 @@ prefill, fused for decode, unless pinned), and speculation rolls a
 rejected draft back by state snapshot/restore and a re-advance over the
 accepted tokens.
 
+**The paper loop** (``dtree=``, ``online_retrain``): the decode step's
+per-region counters are counted once at pool build, on the meta device
+(:func:`repro_torch.core.counters.collect`).  On every change of the load
+bucket (or a hot-swapped tree) the :class:`PlanDecider` scales them by the
+pool's occupancy and the tree picks each hot region's
+:class:`RegionConfig` — speculation depth, attention kernel, memory
+policy, scan mode — for both pools.  With ``online_retrain`` a measurement
+tap feeds per-bucket step counters and tok/s rewards into a corpus, a
+tree is retrained every ``retrain_interval`` steps and hot-swapped in,
+and ``explore_eps`` trials serve-only candidates now and then.
+
 **Failure domains**: non-finite logits (the step's finite-logits guard)
 and injected faults retry per request with capped backoff and end in
 FAILED past ``max_retries``; a window of faults walks the health ladder
@@ -42,8 +53,8 @@ plan (no speculation, the gather attention path).
 
 Steps run eagerly; the step cache is keyed on the resolved knobs, as in
 the JAX package.  Not ported yet, and raising ``NotImplementedError`` when
-asked for: decision-tree plan selection and online retraining (ROADMAP
-queue 1 item 7), telemetry (item 9), and tensor parallelism (item 14).
+asked for: telemetry (ROADMAP queue 1 item 9) and a tensor-parallel
+degree above 1 after clamping to the devices (item 14).
 """
 from __future__ import annotations
 
@@ -57,6 +68,8 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, make_generator, resolve_device
+from repro_torch.autotune.candidates import canonical
+from repro_torch.autotune.decider import PlanDecider  # noqa: F401  (re-export)
 from repro_torch.core.policy import RegionConfig, RegionPlan, null_plan
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
@@ -76,11 +89,15 @@ class ServeConfig:
     # -- continuous batching -------------------------------------------------
     max_slots: int = 4          # max in-flight requests (pool width)
     eos_id: int = -1            # -1: no EOS (per-request eos_id overrides)
-    # -- online autotuning (not ported: ROADMAP queue 1 item 7) --------------
-    online_retrain: bool = False
-    retrain_interval: int = 32
-    explore_eps: float = 0.0
-    explore_budget: int = 64
+    # -- online autotuning (repro_torch.autotune: measure -> corpus -> train
+    # -> decide) -------------------------------------------------------------
+    online_retrain: bool = False   # tap step counters + tok/s rewards into a
+                                   # corpus, retrain the dtree, hot-swap it
+    retrain_interval: int = 32     # decode steps between retrain attempts
+    explore_eps: float = 0.0       # epsilon-greedy exploration over the
+                                   # serve-only menu (0 = greedy output
+                                   # unchanged)
+    explore_budget: int = 64       # hard cap on exploration decisions
     # -- paged KV pool -------------------------------------------------------
     paged: str = "auto"         # "auto": paged wherever the family supports
                                 # it; "on": require it; "off": slot pool
@@ -112,7 +129,10 @@ class ServeConfig:
                                 # decode.  Greedy output agrees across
                                 # modes (f32 reassociation only)
     # -- tensor parallelism (degrees > 1 not ported: item 14) ----------------
-    tp: int = 0                 # 0 = auto (plan knob, else 1); N pins it
+    tp: int = 0                 # 0 = auto (plan knob, else 1); N pins it.
+                                # The wanted degree clamps down to the
+                                # devices and to a kv-head divisor, as in
+                                # the JAX package: 1 on one device
     # -- failure domains + graceful degradation (serve/{faults,health}.py) ---
     deadline_s: float = 0.0     # default time-to-admission budget (0 = none)
     max_queue: int = 0          # bound on the waiting queue (0 = unbounded)
@@ -138,6 +158,18 @@ def sample_rows(logits: torch.Tensor, gen: torch.Generator,
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+
+
+#: hot regions the decision tree is consulted for per (re)selection
+AUTOPLAN_TOP_N = 2
+
+
+def load_bucket(n_active: int) -> int:
+    """Occupancy bucket for replan triggering: the next power of two >=
+    n_active (1 for an empty/single-slot pool).  The decider re-runs only
+    when the bucket changes, so plan churn is logarithmic in load swings
+    while the counters it scales by still track occupancy."""
+    return 1 << max(0, n_active - 1).bit_length()
 
 
 def draft_ngram(history: np.ndarray, depth: int, *, max_ngram: int = 3,
@@ -172,6 +204,13 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 
 
 class Engine:
+    # class-level defaults so resolution helpers (tp_for/spec_depth_for)
+    # stay callable on partially-constructed engine shells (tests stub
+    # Engine via object.__new__ to exercise them without a model)
+    _force_safe = False                 # pin spec0/gather/tp1
+    _fallback = None                    # (step, depth, tp) to restore
+    device = torch.device("cpu")
+
     def __init__(self, model: Model, params, plan: Optional[RegionPlan] = None,
                  serve_cfg: Optional[ServeConfig] = None, dtree=None,
                  device: DeviceLike = None):
@@ -182,23 +221,32 @@ class Engine:
         # be shared by every Engine and mutate across instances)
         self.cfg = serve_cfg if serve_cfg is not None else ServeConfig()
         cfg = self.cfg
-        if dtree is not None:
-            raise _not_ported("decision-tree plan selection (dtree)", 7)
-        if cfg.online_retrain or cfg.explore_eps > 0:
-            raise _not_ported("online retraining / exploration", 7)
         if cfg.telemetry or cfg.trace_out or cfg.metrics_out or cfg.log_out:
             raise _not_ported("serve telemetry", 9)
-        if cfg.tp > 1:
-            raise _not_ported("tensor-parallel serving (tp > 1)", 14)
         self.params = L.tree_map(lambda t: t.to(self.device), params)
+        # the decider is the swappable tree handle (repro_torch.autotune
+        # .decider); with online_retrain it exists even before any tree
+        # does (cold start: the first retrain swaps one in)
+        self.decider: Optional[PlanDecider] = None
+        if dtree is not None or cfg.online_retrain:
+            self.decider = PlanDecider(dtree)
+        self._decider_version: Optional[int] = None   # version at last replan
 
         # -- pool state (built lazily by _ensure_pool) -----------------------
         self._pool = None                           # PagedKVPool / SlotKVPool
         self._paged = False
         self.governor: Optional[MemoryGovernor] = None
+        self._build_step = None                     # plan -> (step, D, tp)
+        self._decided_plan = self.plan              # last decider output —
+                                                    # prefill-phase knobs
+                                                    # (scan_mode) resolve
+                                                    # against it at call time
         self._pool_steps: dict = {}                 # key -> (step, depth, tp)
         self._pool_step = None
         self._spec_depth = 0                        # depth of _pool_step
+        self._pool_rc = None                        # counters of base step
+        self._load_bucket: Optional[int] = None
+        self.decisions_log: list = []
 
         # -- failure domains + graceful degradation --------------------------
         self.faults = None                          # FaultInjector or None
@@ -211,6 +259,75 @@ class Engine:
         self._force_safe = False                    # pin spec0/gather
         self._fallback = None                       # (step, depth, tp) to
                                                     # restore on recovery
+
+        # -- online autotuning state (measure->corpus->train->decide) --------
+        self.corpus = None
+        self.trainer = None
+        self.explorer = None
+        self._init_autotune_state()
+        self._tap_region: Optional[str] = None      # hottest attn-ish region
+        self._reset_tap_state()
+
+    def _init_autotune_state(self):
+        """Fresh corpus/trainer/explorer from the ServeConfig (shared by
+        __init__ and autotune_reset so the two can never drift apart)."""
+        if not self.cfg.online_retrain:
+            return
+        from repro_torch.autotune.corpus import Corpus
+        from repro_torch.autotune.explorer import EpsilonGreedyExplorer
+        from repro_torch.autotune.trainer import OnlineTrainer
+        self.corpus = Corpus()
+        self.trainer = OnlineTrainer(interval=self.cfg.retrain_interval)
+        self.explorer = EpsilonGreedyExplorer(
+            eps=self.cfg.explore_eps, budget=self.cfg.explore_budget,
+            seed=self.cfg.seed)
+
+    def _reset_tap_state(self):
+        """Zero the per-trace measurement-tap accumulators and stats."""
+        self._tap_acc: dict = {}        # bucket -> [steps, tokens, secs,
+                                        #            prefix lookups, hits]
+        self._tap_lat: dict = {}        # bucket -> LatencySketch over the
+                                        # window (feeds step_latency_p99)
+        self._tap_qd = [0.0, 0]         # window queue-delay [sum_s, n]
+                                        # over fresh admissions
+        self._tap_pending = 0           # taps since the last flush
+        self._tap_prefix_last = None    # (lookups, hits) at the last tap —
+                                        # pool counters are monotonic, the
+                                        # tap wants per-window deltas
+        self._bucket_class: dict = {}   # bucket -> class in effect (tap attn
+                                        # region), for reward attribution
+        self._exploring = False         # current plan carries an explored class
+        self._force_replan = False      # explorer wants a mid-bucket re-decide
+        self.autotune_stats = {
+            "retrains": 0, "swaps": 0, "explored": 0, "explore_steps": 0,
+            "steps": 0, "corpus_entries": 0,
+            # tok/s before the first tree swap vs after the last one
+            "pre_tokens": 0, "pre_secs": 0.0,
+            "post_tokens": 0, "post_secs": 0.0,
+        }
+
+    # -- the dtree is the decider's swappable handle -------------------------
+    @property
+    def dtree(self):
+        return self.decider.tree if self.decider is not None else None
+
+    @dtree.setter
+    def dtree(self, tree):
+        """Assigning a tree routes through PlanDecider.swap, so the version
+        bump invalidates the load-bucket replan latch — a tree installed
+        mid-bucket takes effect on the very next step."""
+        if self.decider is None:
+            self.decider = PlanDecider(tree)
+        else:
+            self.decider.swap(tree)
+
+    def autotune_reset(self, tree=None):
+        """Restart the online-autotune loop cold (fresh corpus / trainer /
+        explorer / stats, ``tree`` as the incumbent) while keeping built
+        pool steps cached."""
+        self._init_autotune_state()
+        self.dtree = tree               # swap: bumps version, busts the latch
+        self._reset_tap_state()
 
     def _sync(self) -> None:
         """Wait for the device (host clocks around device work)."""
@@ -351,15 +468,37 @@ class Engine:
             return self.cfg.prefix_cache == "on"
         return plan.config_for("layer0/attn").prefix_cache == "on"
 
+    def _n_devices(self) -> int:
+        """Devices a tensor-parallel step could span: the visible CUDA
+        cards on ``cuda``, else 1."""
+        if self.device.type == "cuda":
+            return torch.cuda.device_count()
+        return 1
+
     def tp_for(self, plan: RegionPlan) -> int:
-        """The resolved tensor-parallel degree: 1 — the only one ported."""
+        """tp-degree resolution, as in the JAX package: an explicit
+        ServeConfig value pins it; in auto mode the plan's attn-region
+        tp_degree knob (the PlanDecider's tp1/tp2/tp4 channel) decides;
+        unset means 1.  The wanted degree then clamps DOWN to the devices
+        the engine may use and to a divisor of the kv-head count
+        (:func:`repro_torch.kernels.paged_attention.shard_kv_heads`), so an
+        infeasible candidate class degrades to what the host can run — on
+        one device, 1.  A degree still above 1 after the clamp raises:
+        tensor-parallel serving is not ported yet."""
         want = self.cfg.tp if self.cfg.tp > 0 else (
             max(plan.config_for("layer0/attn").tp_degree, 0) or 1)
         if self._force_safe:
-            want = 1
-        if want > 1:
-            raise _not_ported(f"tensor-parallel serving (tp={want})", 14)
-        return 1
+            want = 1                # degraded: safe plan outranks the pin
+        kvh = getattr(self.model.cfg, "n_kv_heads", 0) or 1
+        n_dev = self._n_devices()
+        tp = max(int(want), 1)
+        while tp > 1 and (tp > n_dev or kvh % tp):
+            tp -= 1
+        from repro_torch.kernels.paged_attention import shard_kv_heads
+        shard_kv_heads(kvh, tp)     # the centralised divisibility rule
+        if tp > 1:
+            raise _not_ported(f"tensor-parallel serving (tp={tp})", 14)
+        return tp
 
     def _step_cache_key(self, plan: RegionPlan) -> str:
         """Pool steps are cached by the plan's *step-affecting* content:
@@ -407,9 +546,8 @@ class Engine:
                 self.model.cache_spec(1, self.cfg.max_len,
                                       self._param_dtype()),
                 self.cfg.max_slots, device=self.device)
-            built = self._build_pool_step(self.plan)
-            self._pool_step, self._spec_depth = built[0], built[1]
-            self._pool_steps[self._step_cache_key(self.plan)] = built
+            self._build_step = self._build_pool_step
+            self._install_base_step()
             return
         ps = self.page_size()
         max_pages = pages_for(self.cfg.max_len, ps)
@@ -426,9 +564,43 @@ class Engine:
         # paths; None keeps them zero-overhead
         self._pool.faults = self.faults
         self.governor.faults = self.faults
-        built = self._build_paged_step(self.plan)
+        self._build_step = self._build_paged_step
+        self._install_base_step()
+
+    def _step_args(self, depth: int) -> list:
+        """Arguments of one pool step at query width ``depth + 1``, shaped
+        as the serve loop passes them (every slot parked: zero tokens,
+        block tables and lengths; no slot active)."""
+        pool, B, S = self._pool, self._pool.n_slots, depth + 1
+        dev = self.device
+        toks = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        act = torch.zeros((B,), dtype=torch.bool, device=dev)
+        if not self._paged:
+            return [self.params, pool.pool, toks, act, None]
+        return [self.params, pool.pages, toks,
+                torch.zeros((B, pool.max_pages_per_slot), dtype=torch.int32,
+                            device=dev),
+                torch.zeros((B,), dtype=torch.int32, device=dev), act, None]
+
+    def _install_base_step(self):
+        """Build the step of the engine's plan and, when a decision tree
+        (or the online loop) will consult them, count its per-region
+        counters once on the meta device — nothing runs, no page is
+        written."""
+        built = self._build_step(self.plan)
         self._pool_step, self._spec_depth = built[0], built[1]
         self._pool_steps[self._step_cache_key(self.plan)] = built
+        if self.dtree is not None or self.cfg.online_retrain:
+            from repro_torch.core import counters as counters_mod
+            self._pool_rc = counters_mod.collect(
+                self._pool_step, *self._step_args(self._spec_depth))
+            # the measurement tap attributes rewards to the hottest
+            # attention-ish region (the decider's main lever); fall back to
+            # the hottest region of any kind
+            tops = self._pool_rc.top_regions("flops", 16)
+            attn = [r for r, _ in tops if "attn" in r]
+            self._tap_region = (attn[0] if attn
+                                else (tops[0][0] if tops else None))
 
     def _sample_pool(self, logits, active, gen, temp):
         """Pool-step sampling via :func:`sample_rows`, masked: rows of
@@ -490,7 +662,8 @@ class Engine:
         if prompt.size < 2:
             return self._pool.empty_slot_cache(), int(prompt[-1])
         plan = self._plan_with_scan_mode(
-            self.plan, self.scan_mode_for(self.plan, phase="prefill"))
+            self.plan, self.scan_mode_for(self._decided_plan,
+                                          phase="prefill"))
         _, cache = self.model.prefill(
             self.params, {"tokens": torch.as_tensor(prompt[None, :-1],
                                                     device=self.device)},
@@ -522,6 +695,193 @@ class Engine:
             return toks, finite
 
         return step, depth, tp
+
+    # ------------------------------------------------------------------
+    # The paper loop at serve time: counters -> decision tree -> plan
+    # ------------------------------------------------------------------
+    def _maybe_replan(self, n_active: int):
+        """On load-bucket changes — or when the decider's tree was hot-
+        swapped (version bump) or the explorer forced a re-decide — re-pick
+        the decode plan via the dtree.  Without the version check a freshly
+        retrained tree would silently never take effect until the next
+        occupancy-bucket change."""
+        if self._pool_rc is None or self.decider is None:
+            return
+        if self._fallback is not None:
+            # degraded: the safe plan is pinned; a replan would override
+            # it.  Recovery (_exit_fallback) sets _force_replan so the
+            # decider re-decides promptly once healthy.
+            return
+        bucket = load_bucket(n_active)
+        if (bucket == self._load_bucket
+                and self.decider.version == self._decider_version
+                and not self._force_replan):
+            return
+        self._load_bucket = bucket
+        self._decider_version = self.decider.version
+        self._force_replan = False
+        load_frac = min(bucket, self._pool.n_slots) / self._pool.n_slots
+        plan, decisions = self.decider.decide(
+            self._pool_rc, self.plan, load_frac=load_frac,
+            top_n=AUTOPLAN_TOP_N)
+        # reward attribution: the class actually in effect for the tap region
+        tap_prefix = (canonical(self._tap_region) if self._tap_region
+                      else None)
+        cls_in_effect = "keep_default"
+        for prefix, cls in decisions:
+            if prefix == tap_prefix:
+                cls_in_effect = self.decider.applied_class(prefix, cls)
+        # epsilon-greedy exploration: override the greedy choice so serve
+        # traffic populates classes the offline search never tried
+        self._exploring = False
+        if self.explorer is not None and tap_prefix is not None:
+            explored = self.explorer.maybe_explore(plan, region=tap_prefix)
+            if explored is not None:
+                cls_in_effect, plan = explored
+                decisions = decisions + [(f"explore:{tap_prefix}",
+                                          cls_in_effect)]
+                self.autotune_stats["explored"] = self.explorer.explored
+                self._exploring = True
+        # the class for this bucket is changing mid-window: flush the steps
+        # accumulated under the OLD class first, or their reward would be
+        # credited to the new class at the next _tap_flush
+        old_cls = self._bucket_class.get(bucket)
+        if (old_cls is not None and old_cls != cls_in_effect
+                and bucket in self._tap_acc):
+            self._append_bucket_obs(bucket, self._tap_acc.pop(bucket),
+                                    old_cls)
+        self._bucket_class[bucket] = cls_in_effect
+        # memory policy follows the decided (or explored) class for the
+        # current bucket — an allocator-policy change, never a new step
+        # (the step cache strips the knobs)
+        if self.governor is not None:
+            self.governor.set_policy(self.reservation_for(plan),
+                                     self.mem_watermark_for(plan),
+                                     max_preempts=self.cfg.max_preempts)
+            self._pool.prefix_enabled = self.prefix_cache_for(plan)
+        # prefill-phase knobs (slot scan_mode) resolve against the decided
+        # (or explored) plan at call time
+        self._decided_plan = plan
+        key = self._step_cache_key(plan)
+        if key not in self._pool_steps:
+            self._pool_steps[key] = self._build_step(plan)
+        self._pool_step, self._spec_depth, _ = self._pool_steps[key]
+        self.decisions_log.append((n_active, decisions))
+
+    # ------------------------------------------------------------------
+    # Online autotuning: the measurement tap (measure -> corpus -> train
+    # -> decide, closed inside the serving loop)
+    # ------------------------------------------------------------------
+    def _tap_step(self, n_active: int, tokens: int, dt_s: float):
+        """Record one decode step's work into the per-bucket accumulators;
+        every ``retrain_interval`` steps, flush to the corpus and retrain."""
+        if self.corpus is None or self._pool_rc is None:
+            return
+        st = self.autotune_stats
+        st["steps"] += 1
+        if self._exploring:
+            st["explore_steps"] += 1
+        seg = "post" if st["swaps"] else "pre"
+        st[seg + "_tokens"] += tokens
+        st[seg + "_secs"] += dt_s
+        bucket = load_bucket(n_active)
+        acc = self._tap_acc.setdefault(bucket, [0, 0, 0.0, 0, 0])
+        acc[0] += 1
+        acc[1] += tokens
+        acc[2] += dt_s
+        # latency channel: per-bucket step-latency sketch over the window
+        lat = self._tap_lat.get(bucket)
+        if lat is None:
+            from repro_torch.serve.telemetry import LatencySketch
+            lat = self._tap_lat[bucket] = LatencySketch()
+        lat.add(dt_s)
+        # prefix-cache hit-rate channel: per-window deltas of the pool's
+        # monotonic lookup/hit counters, attributed to this step's bucket
+        if self._paged and self._pool is not None:
+            idx = self._pool.prefix
+            cur = (idx.lookups, idx.hits)
+            if self._tap_prefix_last is not None:
+                acc[3] += cur[0] - self._tap_prefix_last[0]
+                acc[4] += cur[1] - self._tap_prefix_last[1]
+            self._tap_prefix_last = cur
+        self._tap_pending += 1
+        if self._tap_pending >= max(self.cfg.retrain_interval, 1):
+            self._tap_flush()
+
+    def _append_bucket_obs(self, bucket: int, acc, cls: str):
+        """Append one bucket's accumulated window (``[steps, toks, secs,
+        prefix_lookups, prefix_hits]``) to the corpus as a rewarded
+        observation attributed to ``cls``, with the window's prefix hit
+        rate, fault rate, step-latency p99 and queue delay as counter
+        channels (quantized so identical windows still dedup)."""
+        from repro_torch.autotune.corpus import bucket_log_ms, bucket_rate
+        from repro_torch.core.dtree import features
+        steps, toks, secs = acc[0], acc[1], acc[2]
+        if self.corpus is None or steps == 0 or secs <= 0 or toks == 0:
+            return
+        region = self._tap_region
+        counters = (self._pool_rc.regions.get(region) if region else None)
+        if counters is None:
+            return
+        load_frac = min(bucket, self._pool.n_slots) / self._pool.n_slots
+        scaled = counters.scaled(load_frac)
+        lookups = acc[3] if len(acc) > 3 else 0
+        if lookups:
+            scaled = dataclasses.replace(
+                scaled, prefix_hit_rate=bucket_rate(acc[4] / lookups))
+        fr = self.health.fault_rate()
+        if fr > 0:
+            scaled = dataclasses.replace(scaled, fault_rate=bucket_rate(fr))
+        # pop: a mid-window flush (_maybe_replan's class change) must not
+        # leak the old class's latencies into the new class's window
+        lat = self._tap_lat.pop(bucket, None)
+        if lat is not None and lat.count:
+            scaled = dataclasses.replace(
+                scaled, step_latency_p99=bucket_log_ms(lat.quantile(0.99)))
+        if self._tap_qd[1]:
+            scaled = dataclasses.replace(
+                scaled,
+                queue_delay=bucket_log_ms(self._tap_qd[0] / self._tap_qd[1]))
+        self.corpus.append(canonical(region), features(scaled),
+                           cls, reward=toks / secs)
+
+    def _tap_flush(self):
+        """Corpus append (per-bucket features + class + tok/s reward) ->
+        retrain -> hot-swap.  A swap bumps the decider version, which
+        forces a replan on the very next step."""
+        self._tap_pending = 0
+        for bucket, acc in self._tap_acc.items():
+            self._append_bucket_obs(
+                bucket, acc, self._bucket_class.get(bucket, "keep_default"))
+        self._tap_acc.clear()
+        self._tap_lat.clear()
+        self._tap_qd = [0.0, 0]
+        self.autotune_stats["corpus_entries"] = len(self.corpus)
+        new_tree = self.trainer.maybe_retrain(self.corpus, self.decider.tree)
+        self.autotune_stats["retrains"] = self.trainer.retrain_count
+        if new_tree is not None:
+            self.decider.swap(new_tree)     # version bump busts the latch
+            self.autotune_stats["swaps"] += 1
+        elif self.explorer is not None and self.explorer.active:
+            # no swap this round: give the explorer a mid-bucket chance at
+            # the retrain cadence (bounded by its eps and budget)
+            self._force_replan = True
+
+    def autotune_summary(self) -> dict:
+        """Machine-readable record of the online loop (serve() returns it)."""
+        st = dict(self.autotune_stats)
+        pre = st.pop("pre_tokens"), st.pop("pre_secs")
+        post = st.pop("post_tokens"), st.pop("post_secs")
+        st["pre_swap_tok_s"] = pre[0] / pre[1] if pre[1] > 0 else 0.0
+        st["post_swap_tok_s"] = post[0] / post[1] if post[1] > 0 else 0.0
+        st["post_swap_tok_s_delta"] = (
+            st["post_swap_tok_s"] - st["pre_swap_tok_s"]
+            if pre[1] > 0 and post[1] > 0 else 0.0)
+        st["explore_fraction"] = (st["explore_steps"] / st["steps"]
+                                  if st["steps"] else 0.0)
+        if self.explorer is not None:
+            st["explored"] = self.explorer.explored
+        return st
 
     def _validate(self, req: Request):
         cfg = self.model.cfg
@@ -567,8 +927,12 @@ class Engine:
         self._ensure_pool()
         for r in requests:
             self._validate(r)
+        # each trace re-selects from scratch (built steps stay cached);
+        # only this run's decisions are returned
+        self._load_bucket = None
+        log_start = len(self.decisions_log)
         # fresh health window per trace; a fallback left armed by the
-        # previous trace is unwound so this one starts on the live plan
+        # previous trace is unwound so this one starts on the decided plan
         self.health.reset()
         self._exit_fallback()
         sched = Scheduler()
@@ -577,18 +941,25 @@ class Engine:
         sched.sort_queue()
         res = (self._serve_paged(sched) if self._paged
                else self._serve_slots(sched))
-        out = {"requests": list(requests), **self.observability(requests)}
+        # flush whatever the trace accumulated, so a serve shorter than
+        # retrain_interval (or ending mid-interval) still feeds the corpus
+        if self.corpus is not None and (self._tap_acc or self._tap_pending):
+            self._tap_flush()
+        out = {"requests": list(requests),
+               "decisions": list(self.decisions_log[log_start:]),
+               **self.observability(requests)}
         out.update(res)
         return out
 
     def observability(self, requests: Optional[Sequence[Request]] = None
                       ) -> dict:
         """The per-subsystem ``summary()`` dicts behind one aggregate:
-        health, faults, memory (the governor's on the paged pool, slot
+        autotune, health, faults, memory (the governor's on the paged pool, slot
         bytes and occupancy high-water on the slot pool) and — when
         ``requests`` is passed — the scheduler's trace stats and failure
         rollup."""
         obs: dict = {
+            "autotune": self.autotune_summary(),
             "health": self.health.summary(),
             "faults": (self.faults.summary() if self.faults is not None
                        else {"enabled": False, "injected_total": 0}),
@@ -644,13 +1015,15 @@ class Engine:
         self.health.taps["fallbacks"] += 1
 
     def _exit_fallback(self):
-        """Recovered: restore the pre-fallback step."""
+        """Recovered: restore the pre-fallback step and ask the decider to
+        re-decide on the next step."""
         if self._fallback is None:
             return
         step, depth, _ = self._fallback
         self._fallback = None
         self._force_safe = False
         self._pool_step, self._spec_depth = step, depth
+        self._force_replan = True
 
     def _commit_tokens(self, sched: Scheduler, out_np, n_cand, pending,
                        active, t, on_complete) -> dict:
@@ -721,14 +1094,17 @@ class Engine:
         slot_steps = 0                      # sum of stepped slots over steps
         max_depth = 0                       # deepest speculation actually run
         calls = {"prefill": 0, "readvance": 0}
-        pmode = self.scan_mode_for(self.plan, phase="prefill")
-        dmode = self.scan_mode_for(self.plan)
 
         while not sched.done():
             t = now()
             # admit: every free slot takes the next arrived request (FIFO)
             while pool.n_free and sched.has_ready(t):
                 req = sched.pop_ready(t)
+                # queue-delay tap (slot admissions are always fresh: the
+                # slot pool never preempts)
+                if self.corpus is not None:
+                    self._tap_qd[0] += max(t - req.arrival_s, 0.0)
+                    self._tap_qd[1] += 1
                 hist = req.token_history()
                 slot = pool.alloc()
                 if self.cfg.prefill_chunk > 0 and hist.size >= 2:
@@ -748,6 +1124,7 @@ class Engine:
 
             # interleaved chunked prefill: a bounded budget per loop pass
             budget = max(self.cfg.prefill_chunks_per_step, 1)
+            pmode = self.scan_mode_for(self._decided_plan, phase="prefill")
             while budget > 0 and prefills:
                 req = prefills[0]
                 slot = req.slot
@@ -777,10 +1154,13 @@ class Engine:
                     time.sleep(min(dt, 0.05))
                 continue
 
+            n_act = len(sched.active)
+            self._maybe_replan(n_act)
             t_step0 = time.perf_counter()
             D = self._spec_depth
             S = D + 1
             max_depth = max(max_depth, D)
+            dmode = self.scan_mode_for(self._decided_plan)
 
             toks_in = np.zeros((B, S), np.int32)
             toks_in[:, 0] = pending
@@ -858,6 +1238,7 @@ class Engine:
                         calls["readvance"] += 1
             dt_step = time.perf_counter() - t_step0
             self.health.note_step(dt_step, n_slot_faults=len(faulted))
+            self._tap_step(n_act, sum(consumed.values()), dt_step)
         return {"steps": steps,
                 "slot_calls": calls,
                 "spec": {"committed_tokens": committed_total,
@@ -953,11 +1334,17 @@ class Engine:
                     # a request could ever write) and prefill it fresh
                     shared = shared[:-1]
                     matched = len(shared) * pool.page_size
+                fresh = req.state is RequestState.WAITING
                 slot = gov.admit(hist.size, total, shared_pages=shared)
                 if slot is None:            # head-of-line waits for memory
                     return
                 sched.pop_ready(t)
                 sched.bind_prefill(req, slot, now())
+                # queue-delay tap: admission wait of fresh arrivals (a
+                # PREEMPTED re-entry's wait is tracked separately)
+                if fresh and self.corpus is not None:
+                    self._tap_qd[0] += max(t - req.arrival_s, 0.0)
+                    self._tap_qd[1] += 1
                 if matched:
                     pool.advance(slot, matched)  # rows adopted, not written
                     pool.prefix_hit_requests += 1
@@ -1032,6 +1419,8 @@ class Engine:
                         time.sleep(min(dt, 0.05))
                     continue
 
+                n_act = len(sched.active)
+                self._maybe_replan(n_act)
                 t_step0 = time.perf_counter()
                 D = self._spec_depth
                 S = D + 1
@@ -1168,6 +1557,7 @@ class Engine:
                     self._enter_fallback()
                 else:
                     self._exit_fallback()
+                self._tap_step(n_act, sum(consumed.values()), dt_step)
         except BaseException as e:
             # engine-internal error mid-serve: release every resident's
             # pages (best-effort per slot) and re-raise only after the

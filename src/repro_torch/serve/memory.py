@@ -43,9 +43,14 @@ policy a knob of its own:
   fewest pages, falling back to LIFO admission order to break ties
   (``shared_spared`` counts how often this overrode the pure-LIFO pick).
 
-* **Policy from the plan** — ``reservation`` and the watermark fraction
-  are knobs of the attention region's ``RegionConfig`` (a ``ServeConfig``
-  value pins them), resolved once when the engine builds its pool.
+* **Autotuned policy** — ``reservation`` and the watermark fraction are
+  knobs of the attention region's ``RegionConfig`` (a ``ServeConfig``
+  value pins them) and serve-only candidate classes
+  (:mod:`repro_torch.autotune.candidates`), so the serve-time
+  :class:`repro_torch.autotune.decider.PlanDecider` — or the
+  epsilon-greedy explorer — picks memory policy per load bucket.  The
+  engine calls :meth:`MemoryGovernor.set_policy` on every replan; a
+  switch affects only future admissions and growth.
 
 The governor owns *policy and accounting*; page bookkeeping stays in
 :class:`repro_torch.serve.cache.PagedKVPool` and lifecycle in
@@ -62,7 +67,8 @@ from repro_torch.serve.cache import PagedKVPool, pages_for
 
 @dataclasses.dataclass
 class MemoryPolicy:
-    """The governor's knobs."""
+    """The governor's live knobs (set by :meth:`MemoryGovernor.set_policy`
+    when the PlanDecider re-decides)."""
     reservation: str = "full"   # 'full' = worst case up front; 'lazy' = grow
     watermark: float = 0.1      # lazy-admission free-page high watermark,
                                 # as a fraction of allocatable pages
@@ -94,6 +100,24 @@ class MemoryGovernor:
         self.faults = None
 
     _TRACE_CAP = 128                # decimate when the trace hits this
+
+    # -- policy ---------------------------------------------------------------
+    def set_policy(self, reservation: Optional[str] = None,
+                   watermark: Optional[float] = None,
+                   max_preempts: Optional[int] = None) -> None:
+        """Install the (re)decided memory policy.  Only future admissions
+        and growth see it; resident reservations are never shrunk."""
+        if reservation is not None:
+            if reservation not in ("full", "lazy"):
+                raise ValueError(f"unknown reservation {reservation!r} "
+                                 "(expected 'full' or 'lazy')")
+            self.policy.reservation = reservation
+        if watermark is not None and watermark >= 0:
+            self.policy.watermark = float(watermark)
+        if max_preempts is not None:
+            if max_preempts < 0:
+                raise ValueError("max_preempts must be >= 0")
+            self.policy.max_preempts = int(max_preempts)
 
     # -- admission ------------------------------------------------------------
     def admit(self, prompt_tokens: int, total_tokens: int,

@@ -1,0 +1,241 @@
+"""The port's per-region counters (``repro_torch.core.counters``), its
+roofline and its oversubscription model, against the JAX package's.
+
+The JAX package counts the compiled step's HLO; the port runs the step on
+the meta device under a dispatch mode.  Products agree exactly (2·M·N·K);
+elementwise work is counted per aten op here and per fused HLO op there,
+so per-region flops agree within 25% and byte counts differ in kind (the
+ratio is printed: ``pytest -s``).  Region sets, the order of the hottest
+regions and the tap region are the same.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as jget_config
+from repro.core import counters as jcounters
+from repro.core.policy import null_plan as jnull_plan
+from repro.core.regions import discover_regions as jdiscover_regions
+from repro.core.regions import region as jregion
+from repro.models.model import build as jbuild
+from repro.serve.engine import Engine as JEngine
+from repro.serve.engine import ServeConfig as JServeConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.core import counters, roofline, smt
+from repro_torch.core.policy import null_plan
+from repro_torch.core.regions import (collect_regions, current_region,
+                                      discover_regions, region,
+                                      set_region_filter)
+from repro_torch.kernels import LAUNCHES, ops, work
+from repro_torch.models import layers as L
+from repro_torch.models.model import build, params_from_numpy
+from repro_torch.serve.engine import Engine, ServeConfig
+
+
+def test_dot_flops_exact():
+    """2·M·N·K in both packages (the JAX count within its own test's 5%)."""
+    M, K, N = 64, 128, 32
+    want = 2 * M * K * N
+
+    def jf(x, w):
+        with jregion("mm"):
+            return jnp.sum(x @ w)
+
+    jrc = jcounters.collect(jax.jit(jf).lower(jnp.ones((M, K)),
+                                              jnp.ones((K, N))).compile())
+
+    def f(x, w):
+        with region("mm"):
+            return torch.sum(x @ w)
+
+    rc = counters.collect(f, torch.ones(M, K), torch.ones(K, N))
+    assert abs(jrc.regions["mm"].flops - want) / want < 0.05
+    # the product exactly, plus one flop for the sum's single output
+    assert rc.regions["mm"].flops == want + 1
+    assert rc.regions["mm"].bytes == 4 * (M * K + K * N + 2 * M * N) + 4
+
+
+@pytest.mark.parametrize("op,args,flops", [
+    ("bmm", ((3, 8, 16), (3, 16, 4)), 2 * 3 * 8 * 4 * 16),
+    ("einsum", ((2, 5, 6), (6, 7)), 2 * 2 * 5 * 7 * 6),
+    ("linear", ((4, 10), (12, 10)), 2 * 4 * 12 * 10),
+])
+def test_products_count_batch_included(op, args, flops):
+    a, b = (torch.ones(s) for s in args)
+    fn = {"bmm": torch.bmm,
+          "einsum": lambda x, y: torch.einsum("bij,jk->bik", x, y),
+          "linear": torch.nn.functional.linear}[op]
+    assert counters.collect(fn, a, b).total.flops == flops
+
+
+def test_slice_rules_and_free_views():
+    """In-place slice writes count twice the update, gathers twice the
+    output, views nothing."""
+    buf = torch.zeros(1000, 64)
+    upd = torch.ones(4, 64)
+    idx = torch.tensor([1, 5, 9, 700])
+
+    def write(b, u, i):
+        b[i] = u                    # index_put_
+        b[10:14].copy_(u)           # copy_ into a view
+        b.view(-1)[:5]              # a view: free
+
+    rc = counters.collect(write, buf, upd, idx)
+    assert rc.total.bytes == 2 * 2 * upd.numel() * 4
+    assert rc.total.flops == 0 and rc.total.ops == 2
+
+    rc = counters.collect(lambda b, i: b[i], buf, idx)
+    assert rc.total.bytes == 2 * 4 * 64 * 4 and rc.total.ops == 1
+
+
+def test_region_discovery():
+    """The JAX package's case, and equal region sets for the forward pass
+    of reduced stablelm-1.6b and qwen3-8b in both packages."""
+    def f(x):
+        with region("a"):
+            with region("b"):
+                return x * 2
+
+    assert discover_regions(f, torch.ones(4)) == {"a", "a/b"}
+    toks = np.zeros((2, 8), np.int32)
+    for arch in ("stablelm-1.6b", "qwen3-8b"):
+        jmodel = jbuild(jget_config(arch).reduced())
+        want = jdiscover_regions(
+            lambda p, t: jmodel.forward(p, {"tokens": t}, jnull_plan()),
+            jmodel.abstract_params(jnp.float32), jnp.asarray(toks))
+        model = build(get_config(arch).reduced())
+        params = model.init(0, dtype=torch.float32, device="cpu")
+        got = discover_regions(
+            lambda p, t: model.forward(p, {"tokens": t}, null_plan()),
+            params, torch.as_tensor(toks))
+        assert got == want and len(got) >= 8, (arch, got ^ want)
+
+
+def test_region_filter_attributes_to_the_nearest_tagged_region():
+    set_region_filter(lambda path: not path.endswith("/inner"))
+    try:
+        def f(x):
+            with region("outer"):
+                with region("inner"):
+                    assert current_region() == "outer"
+                    return x + 1
+
+        with collect_regions() as seen:
+            rc = counters.collect(f, torch.ones(8))
+        assert seen == {"outer", "outer/inner"}
+        assert set(rc.regions) == {"outer"}
+    finally:
+        set_region_filter(None)
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """The gather decode step of reduced stablelm-1.6b, counted by both
+    engines (online_retrain makes each collect its step's counters)."""
+    jcfg = jget_config("stablelm-1.6b").reduced()
+    jmodel = jbuild(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0), dtype=jnp.float32)
+    kw = dict(max_len=32, max_slots=2, page_size=8, online_retrain=True)
+    jeng = JEngine(jmodel, jparams, serve_cfg=JServeConfig(**kw))
+    jeng._ensure_pool()
+    model = build(get_config("stablelm-1.6b").reduced())
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams),
+                               device="cpu")
+    eng = Engine(model, params, serve_cfg=ServeConfig(**kw), device="cpu")
+    eng._ensure_pool()
+    weight_bytes = sum(x.size * x.dtype.itemsize
+                       for x in jax.tree.leaves(jparams))
+    return jeng, eng, weight_bytes
+
+
+def test_gather_decode_step_counts_match_jax(engines):
+    jeng, eng, weight_bytes = engines
+    jrc, rc = jeng._pool_rc, eng._pool_rc
+    jtop, top = jrc.top_regions("flops", 5), rc.top_regions("flops", 5)
+    assert [r for r, _ in top] == [r for r, _ in jtop]
+    assert eng._tap_region == jeng._tap_region == "layer0/attn"
+    for (r, f), (_, jf) in zip(top, jtop):
+        assert abs(f - jf) <= 0.25 * jf, (r, f, jf)
+    assert set(rc.regions) == set(jrc.regions)
+    assert rc.total.bytes >= weight_bytes and jrc.total.bytes >= weight_bytes
+    assert rc.total.collective_bytes == rc.total.link_bytes == 0
+    print(f"\n[counters] reduced stablelm-1.6b gather decode step: bytes "
+          f"port/JAX = {rc.total.bytes / jrc.total.bytes:.4f} "
+          f"({rc.total.bytes:.0f} / {jrc.total.bytes:.0f}), flops "
+          f"{rc.total.flops / jrc.total.flops:.4f}, weights "
+          f"{weight_bytes} bytes")
+
+
+def test_counts_equal_from_cpu_or_meta_and_run_nothing(engines):
+    """Counting from CPU tensors or from meta tensors gives identical
+    counters; it launches no kernel and writes no pool page."""
+    _, eng, _ = engines
+    args = eng._step_args(eng._spec_depth)
+    for t in L.tree_leaves(eng._pool.pages):
+        t.normal_()
+    pages = [t.clone() for t in L.tree_leaves(eng._pool.pages)]
+    before = dict(LAUNCHES)
+    from_cpu = counters.collect(eng._pool_step, *args)
+    from_meta = counters.collect(eng._pool_step, *counters.to_meta(args))
+    assert from_cpu.total == from_meta.total
+    assert from_cpu.regions == from_meta.regions
+    assert from_cpu.regions == eng._pool_rc.regions
+    assert dict(LAUNCHES) == before
+    for a, b in zip(pages, L.tree_leaves(eng._pool.pages)):
+        assert torch.equal(a, b)
+
+
+def test_kernel_wrappers_note_shape_only_work():
+    """The paged and scan kernels, handed meta tensors, note the work of
+    every page of the block table and every step of T as one op."""
+    B, S, KVH, G, HD, P, ps, MP = 3, 2, 2, 4, 32, 13, 8, 4
+    q = torch.zeros(B, S, KVH, G, HD)
+    pages = torch.zeros(P, ps, KVH, HD)
+    bt = torch.zeros(B, MP, dtype=torch.int32)
+    lens = torch.zeros(B, dtype=torch.int32)
+    rc = counters.collect(lambda *a: ops.paged_attention_mq(*a), q, pages,
+                          pages, bt, lens)
+    nbytes, flops = work.paged_attention(B, S, KVH, G, HD, 4, MP, ps)
+    assert (rc.total.bytes, rc.total.flops, rc.total.ops) == (nbytes, flops, 1)
+    r = torch.zeros(2, 7, 3, 16)
+
+    def scan(x, u, s0):
+        out, s = ops.wkv(x, x, x, x, u, s0)
+        assert out.shape == x.shape and s.shape == s0.shape
+        return out
+
+    rc = counters.collect(scan, r, torch.zeros(3, 16),
+                          torch.zeros(2, 3, 16, 16))
+    assert (rc.total.bytes, rc.total.flops) == work.wkv(2, 3, 7, 16)
+
+
+def test_roofline_picks_the_card_by_name():
+    assert roofline.card_for("NVIDIA H100 80GB HBM3") is roofline.H100_SXM
+    assert roofline.card_for("NVIDIA H100 PCIe") is roofline.H100_PCIE
+    assert roofline.card_for("NVIDIA H100 NVL") is roofline.H100_NVL
+    for dev in ("cpu", "meta", None):
+        assert roofline.card_for_device(dev) is roofline.H100_SXM
+    c = counters.Counters(flops=989e12, bytes=3.35e12 * 2, link_bytes=450e9)
+    rl = roofline.from_counters(c)
+    assert np.isclose(rl.compute_s, 1.0) and np.isclose(rl.memory_s, 2.0)
+    assert np.isclose(rl.collective_s, 1.0) and rl.dominant == "memory"
+    assert roofline.peak_ops(torch.float32) == 67e12
+    assert roofline.peak_ops("bfloat16") == 989e12
+    ms, by = work.bound_ms(*work.matmul(2048, 5632, 2048, 2), torch.bfloat16)
+    assert by == "operations" and np.isclose(
+        ms, 2 * 2048 * 5632 * 2048 / 989e12 * 1e3)
+
+
+def test_smt_budget_is_hoppers_shared_memory():
+    """The oversubscription model keeps the JAX package's API with
+    Hopper's budget: 228 KB per SM, 227 KB a block."""
+    modes = smt.legal_modes((128, 128))
+    assert [m.oversubscribe for m in modes] == [1, 2, 4]
+    assert all(smt.fits_vmem(m) for m in modes)
+    assert smt.legal_modes((256, 256)) == []
+    assert not smt.fits_vmem(smt.BlockChoice((256, 128), 1))
+    assert smt.aligned((32, 128)) and not smt.aligned((24, 128))
+    assert smt.stall_hiding_model(1.0, 2.0, 4) < smt.stall_hiding_model(
+        1.0, 2.0, 1)

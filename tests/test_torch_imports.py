@@ -45,7 +45,7 @@ def test_every_module_imports_without_jax_or_repro():
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     n_mods, ok = proc.stdout.split()
-    assert ok == "ok" and int(n_mods) >= 25
+    assert ok == "ok" and int(n_mods) >= 50
 
 
 def test_sources_hold_no_forbidden_call():

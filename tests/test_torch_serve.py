@@ -208,18 +208,18 @@ def test_page_allocator_matches_jax_under_random_ops():
         assert b.free_run_histogram() == a.free_run_histogram()
 
 
-def test_features_outside_the_slice_raise(models):
+def test_features_outside_the_slice_raise(models, monkeypatch):
     """Features not ported yet raise NotImplementedError naming their
     ROADMAP item — never silently dropped.  (The slot pool, paged='off',
-    and the static generate() are ported: tests/test_torch_slot_serve.py.)"""
+    and the static generate() are ported: tests/test_torch_slot_serve.py;
+    the decision tree and the online loop: tests/test_torch_autotune_serve
+    .py.)  A tensor-parallel degree clamps down to the devices, as in the
+    JAX package, so it raises only where more than one device remains."""
     _, _, model, tparams = models
-    bad = [dict(online_retrain=True), dict(telemetry=True),
-           dict(trace_out="t.json"), dict(tp=2)]
+    bad = [dict(telemetry=True), dict(trace_out="t.json")]
     for kw in bad:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(model, tparams, serve_cfg=ServeConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(model, tparams, dtree=object(), device="cpu")
     for arch in ("qwen2-moe-a2.7b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(get_config(arch).reduced())
@@ -227,6 +227,8 @@ def test_features_outside_the_slice_raise(models):
         Engine(build(get_config("rwkv6-3b").reduced()), {},
                serve_cfg=ServeConfig(paged="on"), device="cpu").serve([])
     tp2 = RegionPlan(region_configs={"layer/attn": RegionConfig(tp_degree=2)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(model, tparams, plan=tp2, device="cpu").serve(
-            _traces([np.arange(4)], [2])[1])
+    monkeypatch.setattr(Engine, "_n_devices", lambda self: 2)
+    for kw in (dict(plan=tp2), dict(serve_cfg=ServeConfig(tp=2))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Engine(model, tparams, device="cpu", **kw).serve(
+                _traces([np.arange(4)], [2])[1])
