@@ -9,17 +9,23 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
 1. card: the GPU's name and power limit (nvidia-smi), then every kernel
    source of ``src/repro_torch/kernels/csrc`` is built with nvcc, one
    process per source, all at once; registers, spills and shared memory
-   are logged.
+   are logged.  ``cuobjdump -sass`` must find the tensor cores' HGMMA in
+   every bf16 ``tuned_matmul`` kernel and HMMA (or HGMMA) in every bf16
+   ``flash_attention`` kernel.
 2. kernel: each CUDA kernel against its plain PyTorch version on the card,
    at the main paths' shapes, with the kernel's time, the plain version's
    time, one library call's time where one exists, and the bound (the
    least time the card could take for the same work, from
-   ``repro_torch.kernels.work``).  ``tuned_matmul`` and ``flash_attention``
-   are held at every shape and tile of the JAX package's kernel tests (and
-   the masking cases: S != Sk, rows that see no key), in f32 and bf16,
-   then timed at stablelm-1.6b's full width; their path, the
-   ``kernels.ops`` entry point (no model of either package calls them),
-   is then driven once at those shapes with the counts set to 0.
+   ``repro_torch.kernels.work``).  ``tuned_matmul`` is held at every tile
+   of its menu at each shape of the JAX package's kernel tests, and at the
+   default tiles on (64, 384, 256); ``flash_attention`` at every case of
+   those tests and the masking cases (S != Sk, rows that see no key); both
+   in f32 and bf16, then timed at stablelm-1.6b's full width (attention
+   also on pre-made (BH, S, D) inputs: within 10% of ``ops.attention``,
+   which reads the model layout in place and allocates nothing but its
+   output).  Their path, the ``kernels.ops`` entry point (no model of
+   either package calls them), is then driven once at those shapes with
+   the counts set to 0.
 3. stablelm-1.6b at full width: parity in f32 (one paged decode step
    through the kernel against the gather path: logits and greedy tokens),
    then the paged engine in bf16 with attn_impl='paged' at spec_depth 0
@@ -94,9 +100,10 @@ SCAN_SHAPES = {
 # the families' scan widths (configs/rwkv6_3b.py, configs/zamba2_2_7b.py)
 WKV_H, WKV_N = 40, 64
 SSD_H, SSD_P, SSD_N = 80, 64, 64
-# tuned_matmul: the JAX package's kernel tests ((M, K, N), (bm, bn, bk)),
-# then the main width's timed call: 8 slots x a 256-token prefill chunk
-# against stablelm-1.6b's d_model x d_ff, at the default tiles
+# tuned_matmul: the JAX package's kernel tests ((M, K, N), (bm, bn, bk);
+# the smoke runs every tile of the menu at each shape), then the main
+# width's timed call: 8 slots x a 256-token prefill chunk against
+# stablelm-1.6b's d_model x d_ff, at the default tiles
 MATMUL_CASES = [((128, 128, 128), (64, 64, 64)),
                 ((256, 512, 128), (128, 128, 128)),
                 ((64, 384, 256), (32, 128, 128))]
@@ -393,6 +400,13 @@ def _dense_check(torch, name, got, want, dtype, what) -> float:
     return err
 
 
+def _outside(got, want, dtype) -> int:
+    """How many elements of ``got`` lie outside ref.KERNEL_TOL of ``want``."""
+    from repro_torch.kernels import ref
+    rtol, atol = ref.KERNEL_TOL[dtype]
+    return int(((got.float() - want).abs() > atol + rtol * want.abs()).sum())
+
+
 def _randn(torch, rng, shape, std, dtype):
     return torch.tensor(rng.standard_normal(shape) * std,
                         dtype=torch.float32, device="cuda").to(dtype)
@@ -409,17 +423,28 @@ def dense_kernel_phase(torch) -> dict:
                                     matmul_library)
     from repro_torch.core.roofline import card_for_device
     from repro_torch.kernels import ops, ref, work
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import tuned_matmul as tm
     rng = np.random.default_rng(21)
     errs = {"tuned_matmul": 0.0, "flash_attention": 0.0}
+    # every tile of the menu at the JAX test shapes, then the default tiles
+    # at (64, 384, 256) (clamped to (64, 128, 128))
+    mm_cases = [(shape, tiles) for shape, _ in MATMUL_CASES
+                for tiles in tm.MENU] + [((64, 384, 256), None)]
     for dtype in (torch.float32, torch.bfloat16):
-        for (M, K, N), (bm, bn, bk) in MATMUL_CASES:
+        for (M, K, N), tiles in mm_cases:
             x = _randn(torch, rng, (M, K), 0.5, dtype)
             y = _randn(torch, rng, (K, N), 0.5, dtype)
-            got = ops.matmul(x, y, bm=bm, bn=bn, bk=bk)
+            if tiles is None:
+                got, what = ops.matmul(x, y), "default tiles"
+            else:
+                got = ops.matmul(x, y, bm=tiles[0], bn=tiles[1],
+                                 bk=tiles[2])
+                what = f"tiles={tiles}"
             torch.cuda.synchronize()
             errs["tuned_matmul"] = max(errs["tuned_matmul"], _dense_check(
                 torch, "tuned_matmul", got, ref.matmul(x, y), dtype,
-                f"{dtype} M={M} K={K} N={N} tiles=({bm},{bn},{bk})"))
+                f"{dtype} M={M} K={K} N={N} {what}"))
         cases = [(S, S, D, bq, bk, causal, window)
                  for S, D, bq, bk in ATTN_TESTS
                  for causal, window in ATTN_MASKS] + ATTN_EXTRA
@@ -446,6 +471,32 @@ def dense_kernel_phase(torch) -> dict:
         torch.cuda.synchronize()
         err = _dense_check(torch, "tuned_matmul", got, ref.matmul(x, y),
                            dtype, f"{dtype} M={M} K={K} N={N} default tiles")
+        if dtype == torch.bfloat16:
+            # why the plain version of a bf16 product sums in f64: against
+            # the f32 product even the exact product rounded to bf16 misses
+            # the bound on a few elements (this draw, then two more)
+            for draw in ("timed", 0, 1):
+                xd, yd, gd = x, y, got
+                if draw != "timed":
+                    drng = np.random.default_rng(draw)
+                    xd = _randn(torch, drng, (M, K), 0.5, dtype)
+                    yd = _randn(torch, drng, (K, N), 0.5, dtype)
+                    gd = ops.matmul(xd, yd)
+                exact = ref.matmul(xd, yd)
+                f32_sum = torch.matmul(xd.float(), yd.float())
+                log(f"[kernel] tuned_matmul {dtype} M={M} K={K} N={N} draw "
+                    f"{draw}: the f32 product strays "
+                    f"{float((f32_sum - exact).abs().max()):.3e} from the "
+                    f"exact one; against it, outside ref.KERNEL_TOL: the "
+                    f"kernel {_outside(gd, f32_sum, dtype)}, the exact "
+                    f"product rounded "
+                    f"{_outside(exact.to(dtype), f32_sum, dtype)} of "
+                    f"{gd.numel()}; against the exact product: the kernel "
+                    f"{_outside(gd, exact, dtype)}, the library call "
+                    f"{_outside(matmul_library(xd, yd), exact, dtype)}")
+                check(_outside(gd, exact, dtype) == 0,
+                      f"tuned_matmul draw {draw} misses ref.KERNEL_TOL")
+                del xd, yd, gd, exact, f32_sum
         ms = time_ms(torch, lambda: ops.matmul(x, y), iters=10)
         plain_ms = time_ms(torch, lambda: ref.matmul(x, y), iters=10)
         lib_ms = time_ms(torch, lambda: matmul_library(x, y), iters=10)
@@ -475,8 +526,23 @@ def dense_kernel_phase(torch) -> dict:
                                f"{dtype} B={B} S={S} H={H} D={D} causal "
                                f"window={window} default tiles")
             del want
+            # no copy: the call allocates its output and nothing more
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = call()
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            check(extra <= out.numel() * out.element_size() + 1024,
+                  f"ops.attention allocated {extra} bytes beyond its inputs "
+                  f"(output {out.numel() * out.element_size()})")
+            del out
             dense = dense_attention_inputs(q, k, v, True, window)
+            folded = [t.transpose(1, 2).reshape(B * H, S, D).contiguous()
+                      for t in (q, k, v)]
             ms = time_ms(torch, call, iters=10)
+            bhsd_ms = time_ms(torch, lambda: fa.flash_attention(
+                *folded, window=window), iters=10)
             plain_ms = time_ms(torch, lambda: ref.flash_attention(
                 q, k, v, window=window), iters=5)
             lib_ms = time_ms(torch, lambda: attention_library(*dense),
@@ -486,8 +552,13 @@ def dense_kernel_phase(torch) -> dict:
             shape = (f"{str(dtype)[6:]} B={B} S={S} H={H} D={D} causal "
                      f"window={window} tiles=(128,128)")
             log(f"[kernel] timed flash_attention {shape}: kernel {ms:.4f} "
-                f"ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
+                f"ms (ops.attention on the model layout; {bhsd_ms:.4f} ms "
+                f"on pre-made (BH, S, D) inputs), plain {plain_ms:.4f} ms, "
+                f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}); no copy: {extra} bytes allocated")
+            check(abs(ms - bhsd_ms) <= 0.1 * bhsd_ms,
+                  f"ops.attention {ms:.4f} ms vs the kernel on pre-made "
+                  f"(BH, S, D) inputs {bhsd_ms:.4f} ms: more than 10% apart")
             if window == 0:
                 records["flash_attention"] = {
                     "name": "flash_attention", "route": "cuda",
@@ -495,10 +566,10 @@ def dense_kernel_phase(torch) -> dict:
                               "flash_attention.cu",
                     "replaces": "src/repro/kernels/flash_attention.py:76",
                     "max_abs_err": max(errs["flash_attention"], err),
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": lib_ms,
-                    "shape": shape}
-            del q, k, v, dense
+                    "ms": ms, "bhsd_ms": bhsd_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms, "shape": shape}
+            del q, k, v, dense, folded
     return records
 
 
@@ -945,6 +1016,32 @@ def build_all(torch) -> None:
                 log(f"[build] {name}: {line.strip()}")
 
 
+def sass_phase() -> None:
+    """The bf16 dense kernels run on the tensor cores: ``cuobjdump -sass``
+    (from the toolkit beside nvcc) must show HGMMA (wgmma) in every bf16
+    ``tuned_matmul`` kernel and HMMA (mma.sync) or HGMMA in every bf16
+    ``flash_attention`` kernel."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import tuned_matmul as tm
+    cuobjdump = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    for lib, marker, want, ops_ in (
+            ("tuned_matmul", "matmul_bf16_wgmma", len(tm.MENU), ("HGMMA",)),
+            ("flash_attention", "flash_bf16_mma",
+             len(fa.HEAD_DIMS) * len(fa.TILES), ("HMMA", "HGMMA"))):
+        out = subprocess.run(
+            [str(cuobjdump), "-sass", str(cuda_build.library_path(lib))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        funcs = [f for f in out.split("Function : ")[1:]
+                 if marker in f.splitlines()[0]]
+        counts = [sum(f.count(op) for op in ops_) for f in funcs]
+        log(f"[sass] {lib}: {len(funcs)} bf16 kernels ({marker}), "
+            f"{'/'.join(ops_)} instructions each: {counts}")
+        check(len(funcs) == want,
+              f"{lib}: {len(funcs)} bf16 kernels in the SASS, want {want}")
+        check(all(counts), f"{lib}: a bf16 kernel without {ops_} in its SASS")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -967,6 +1064,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} | torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     build_all(torch)
+    sass_phase()
 
     record = kernel_phase(torch)
     check(record is not None, "the timed kernel configuration never ran")

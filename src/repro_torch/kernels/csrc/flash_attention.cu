@@ -3,57 +3,87 @@
 // Replaces the Pallas TPU kernel `flash_attention` (body `_flash_kernel`)
 // of src/repro/kernels/flash_attention.py.
 //
-// What it computes.  q (BH, S, D), k / v (BH, Sk, D) -> out (BH, S, D) in
-// q's dtype (float32 or bfloat16).  Query row qi sees key ki where
-// `qi >= ki` (causal) and `qi - ki < window` (window > 0), on absolute
-// positions with no offset, also when S != Sk.  Scores q.k * D^-1/2 are
-// masked to -1e30, the softmax is online over (bq, bk) tiles in f32 and the
-// denominator is clamped at 1e-30, exactly as the TPU kernel does: a row
-// with no visible key at all gets a uniform softmax over every key (the
-// mean of v), like the plain version.
+// What it computes.  q (B, S, H, D) or (BH, S, D) and k / v (B, Sk, H, D)
+// or (BH, Sk, D), read and written through (batch, head, row) strides in
+// elements, so the model layout is read in place -> out in q's dtype
+// (float32 or bfloat16).  Query row qi sees key ki where `qi >= ki`
+// (causal) and `qi - ki < window` (window > 0), on absolute positions with
+// no offset, also when S != Sk.  Scores q.k * D^-1/2 are masked to -1e30,
+// the softmax is online over the caller's (bq, bk) tiles in f32 (one update
+// per k-tile, as on the TPU) and the denominator is clamped at 1e-30,
+// exactly as the TPU kernel does: a row with no visible key at all gets a
+// uniform softmax over every key (the mean of v), like the plain version.
+// k-tiles that every row of the block masks out are skipped: they only add
+// exact zeros once a row has seen a visible key.  Blocks holding a row that
+// sees no key at all walk every tile, so such rows get the TPU kernel's
+// uniform result.
 //
 // What bounds it.  Attention does ~4 * D flops per (query, visible key)
-// pair against ~4 * D bytes per query or key row it must read: at S = 512
-// and D = 64 that is operations on the CUDA cores (this kernel uses scalar
-// f32 FMAs, not the tensor cores, so in bf16 it stays far from the tensor
-// cores' bound).
+// pair against ~4 * D bytes per query or key row it must read: at the main
+// path's shape (S = 512, D = 64, causal) the bf16 call is bound by the bytes
+// it must move, and f32 (no tensor-core path that meets f32's 1e-5) by the
+// CUDA cores' operations.
 //
-// What the design does about that.  One block of 256 threads per (bh,
-// q-tile of bq rows) loops over the k-tiles of bk keys; the TPU's grid
-// carried m, l and the accumulator in VMEM across the k axis, here they
-// stay in the block for its whole loop.  Shared memory cannot hold the
-// TPU's four f32 tiles at bq = bk = 128, D = 128 (Q, K, V and the scores:
-// 256 KB, above the 227 KB a block may have), so the design keeps Q and
-// the full (bq, bk) score tile in shared memory (one online-softmax update
-// per caller's k-tile, as on the TPU) and streams K, then V, through one
-// 32-row sub-tile buffer; the (bq, D) accumulator lives in registers,
-// 4 columns x D/8 rows per thread.  At most 150 KB of shared memory.  Rows
-// are padded by one float so a warp's reads hit distinct banks.  k-tiles
-// that every row of the block masks out are skipped: they only add exact
-// zeros once a row has seen a visible key.  Blocks holding a row that sees
-// no key at all walk every tile, so such rows get the TPU kernel's uniform
-// result.  Tensor cores, cp.async/TMA and a pipelined ring are left for
-// later work.
+// bf16: what the design does about that.  `flash_bf16_mma` runs both
+// products on the tensor cores with `mma.sync.m16n8k16` (bf16 in, f32
+// accumulators).  One block per (b, h, q-tile of bq rows), one warp per 16
+// query rows (bq in {32, 64, 128}: 2, 4 or 8 warps); each warp keeps its Q
+// fragments in registers for the whole walk.  K and V tiles of bk rows
+// (bk in {32, 64, 128}) come through a double-buffered `cp.async` ring,
+// rows padded by 16 bytes so `ldmatrix` reads hit distinct banks.  S = Q.K^T
+// stays in registers; mask, row max and row sum are reduced there with quad
+// shuffles, and no score tile goes to shared memory.  P.V reuses P from the
+// score accumulator's register layout as the A operand.  P is split into
+// hi = bf16(P) and lo = bf16(P - hi), two MMAs into one f32 accumulator:
+// P rounded once to bf16 misses the bf16 bound the kernel is held to
+// (1e-5 + 2^-8 x |plain|), the split meets it with f32 P's error.  Q.K^T
+// needs no such care: a product of two bf16 values is exact in f32.  The
+// softmax's elementwise work, not the MMAs, bounds the loop, so exp runs
+// as one SFU `ex2.approx` (2^-22 relative error) and each pair of P is
+// split with two packing conversions.
+//
+// f32: the CUDA-core kernel `flash_kernel`.  One block of 256 threads per
+// (b, h, q-tile) keeps Q and the full (bq, bk) score tile in shared memory
+// and streams K, then V, through one 32-row sub-tile buffer; the (bq, D)
+// accumulator lives in registers.  At most 150 KB of shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 256;       // f32 kernel
 constexpr int kMaxTile = 128;       // bq and bk at most this
-constexpr int kSub = 32;            // K/V rows staged at once
+constexpr int kSub = 32;            // f32: K/V rows staged at once
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// (batch, head, row) strides of a tensor in elements; its last dim is
+// contiguous
+struct Strides {
+  long long b, h, r;
+};
+
+// the k-tiles [kb0, kb1] a block of rows q0 .. q0+bq-1 must walk
+__device__ __forceinline__ void tile_range(int q0, int bq, int Sk, int bk,
+                                           int causal, int window, int& kb0,
+                                           int& kb1) {
+  const int last = q0 + bq - 1;
+  kb0 = 0;
+  kb1 = Sk / bk - 1;
+  if (!(window > 0 && last >= Sk - 1 + window)) {
+    const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int hi = causal ? min(last, Sk - 1) : Sk - 1;
+    kb0 = lo / bk;
+    kb1 = hi / bk;
+  }
 }
-__device__ __forceinline__ void store(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void store(float v, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16(v);
-}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
 
 size_t smem_floats(int D, int bq, int bk) {
   const int kt = bk < kSub ? bk : kSub;
@@ -61,11 +91,12 @@ size_t smem_floats(int D, int bq, int bk) {
          3 * (size_t)bq;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int Sk,
-             int bq, int bk, int causal, int window, float scale) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int H,
+             int S, int Sk, int bq, int bk, int causal, int window,
+             float scale, Strides sq, Strides sk, Strides sv, Strides so) {
   constexpr int DP = D + 1;                 // padded row of Q / K / V
   constexpr int CG = D / 4;                 // column groups of the acc
   constexpr int NGR = kThreads / CG;        // row groups of the acc
@@ -81,29 +112,21 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* a_s = l_s + bq;                    // [bq]
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int q0 = blockIdx.x * bq;
-  const T* qb = q + ((size_t)bh * S + q0) * D;
-  const T* kb_ = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
+  const float* qb = q + b * sq.b + h * sq.h + q0 * sq.r;
+  const float* kb_ = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
   for (int e = tid; e < bq * D; e += kThreads)
-    qs[(e / D) * DP + e % D] = to_f32(qb[e]);
+    qs[(e / D) * DP + e % D] = qb[(e / D) * sq.r + e % D];
   for (int r = tid; r < bq; r += kThreads) {
     m_s[r] = kNegInf;
     l_s[r] = 0.f;
   }
 
-  // the k-tiles this block must walk
-  const int nk = Sk / bk;
-  const int last = q0 + bq - 1;
-  int kb0 = 0, kb1 = nk - 1;
-  if (!(window > 0 && last >= Sk - 1 + window)) {
-    const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-    const int hi = causal ? min(last, Sk - 1) : Sk - 1;
-    kb0 = lo / bk;
-    kb1 = hi / bk;
-  }
+  int kb0, kb1;
+  tile_range(q0, bq, Sk, bk, causal, window, kb0, kb1);
 
   const int dg = tid % CG, rg = tid / CG;
   float acc[R][4];
@@ -118,7 +141,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // scores of the (bq, bk) tile, K staged kt rows at a time
     for (int sub = 0; sub < bk; sub += kt) {
       for (int e = tid; e < kt * D; e += kThreads)
-        kv[(e / D) * DP + e % D] = to_f32(kb_[(size_t)(k0 + sub) * D + e]);
+        kv[(e / D) * DP + e % D] = kb_[(k0 + sub + e / D) * sk.r + e % D];
       __syncthreads();
       const int items = ((bq + 3) / 4) * kt;
       for (int e = tid; e < items; e += kThreads) {
@@ -177,7 +200,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // acc += P @ V, V staged kt rows at a time
     for (int sub = 0; sub < bk; sub += kt) {
       for (int e = tid; e < kt * D; e += kThreads)
-        kv[(e / D) * DP + e % D] = to_f32(vb[(size_t)(k0 + sub) * D + e]);
+        kv[(e / D) * DP + e % D] = vb[(k0 + sub + e / D) * sv.r + e % D];
       __syncthreads();
       for (int c = 0; c < kt; ++c) {
         float vv[4];
@@ -197,7 +220,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + ((size_t)bh * S + q0) * D;
+  float* ob = out + b * so.b + h * so.h + q0 * so.r;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int r = rg + NGR * i;
@@ -205,43 +228,302 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float inv_l = 1.f / fmaxf(l_s[r], 1e-30f);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        store(acc[i][j] * inv_l, ob + (size_t)r * D + dg + CG * j);
+        ob[r * so.r + dg + CG * j] = acc[i][j] * inv_l;
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int BH,
-           int S, int Sk, int bq, int bk, int causal, int window, float scale,
-           cudaStream_t stream) {
-  const size_t smem = smem_floats(D, bq, bk) * sizeof(float);
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync.m16n8k16)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p)))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p)))
+      : "memory");
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU (max relative error ~2^-22); exp(x) is ex2(x * log2 e)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// P's two bf16 halves: hi = bf16(p), lo = bf16(p - hi), packed in pairs
+__device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(p0, p1);
+  // a bf16 is the top half of an f32
+  lo = pack_bf16(p0 - __uint_as_float(hi << 16),
+                 p1 - __uint_as_float(hi & 0xFFFF0000u));
+}
+
+template <int D>
+__host__ __device__ constexpr int kv_pitch() {
+  return D + 8;   // a K / V row in shared memory, padded by 16 bytes
+}
+
+template <int D, int BK>
+constexpr size_t bf16_smem_bytes() {
+  return (size_t)2 * 2 * BK * kv_pitch<D>() * sizeof(bf16);  // 2 bufs, K, V
+}
+
+// Fragment layouts (m16n8k16): lane l holds, of a 16-row A tile, rows
+// g = l/4 and g+8 at columns 2c, 2c+1 (+8), c = l%4; of the 16 x 8
+// accumulator, rows g and g+8 at columns 2c, 2c+1.
+template <int D, int BK>
+__global__ void __launch_bounds__(kMaxTile * 2)
+flash_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ out, int H,
+               int S, int Sk, int bq, int causal, int window, float scale,
+               Strides sq, Strides sk, Strides sv, Strides so) {
+  constexpr int DP = kv_pitch<D>();
+  constexpr int NS = BK / 8;        // score accumulators (8 keys each)
+  constexpr int NO = D / 8;         // output accumulators (8 columns each)
+  extern __shared__ __align__(16) bf16 kvs[];   // [2][K, V][BK][DP]
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * bq;
+  const bf16* kb_ = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+
+  int kb0, kb1;
+  tile_range(q0, bq, Sk, BK, causal, window, kb0, kb1);
+
+  auto load_tile = [&](int kb, int buf) {
+    constexpr int CH = D / 8;      // 16-byte chunks of a row
+    bf16* ks = kvs + buf * 2 * BK * DP;
+    bf16* vs = ks + BK * DP;
+    const long long k0 = (long long)kb * BK;
+    for (int e = tid; e < BK * CH; e += nthreads) {
+      const int r = e / CH, ch = e % CH;
+      cp_async16(ks + r * DP + ch * 8, kb_ + (k0 + r) * sk.r + ch * 8);
+      cp_async16(vs + r * DP + ch * 8, vb + (k0 + r) * sv.r + ch * 8);
+    }
+    cp_async_commit();
+  };
+  load_tile(kb0, 0);
+
+  // this warp's 16 query rows: g and g + 8 of them
+  const int qr = q0 + warp * 16 + g;
+  uint32_t qf[D / 16][4];
+  {
+    const bf16* qp = q + b * sq.b + h * sq.h + (long long)qr * sq.r + 2 * c;
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t) {
+      qf[t][0] = *reinterpret_cast<const uint32_t*>(qp + 16 * t);
+      qf[t][1] = *reinterpret_cast<const uint32_t*>(qp + 8 * sq.r + 16 * t);
+      qf[t][2] = *reinterpret_cast<const uint32_t*>(qp + 16 * t + 8);
+      qf[t][3] =
+          *reinterpret_cast<const uint32_t*>(qp + 8 * sq.r + 16 * t + 8);
+    }
+  }
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int kb = kb0, it = 0; kb <= kb1; ++kb, ++it) {
+    const int buf = it & 1;
+    if (kb < kb1) {
+      load_tile(kb + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = kvs + buf * 2 * BK * DP;
+    const bf16* vs = ks + BK * DP;
+    const int k0 = kb * BK;
+
+    // S = Q . K^T: K rows are the B operand's columns (ldmatrix, no trans)
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int t = 0; t < D / 16; t += 2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, ks + (8 * j + lane % 8) * DP + 16 * t + 8 * (lane / 8));
+        mma_bf16(s[j], qf[t], kf[0], kf[1]);
+        mma_bf16(s[j], qf[t + 1], kf[2], kf[3]);
+      }
+    }
+    // scale, mask, row max over the tile (rows g: e = 0, 1; g + 8: e = 2, 3)
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = qr + 8 * (e / 2), ki = k0 + 8 * j + 2 * c + (e % 2);
+        bool ok = true;
+        if (causal) ok = ok && qi >= ki;
+        if (window > 0) ok = ok && qi - ki < window;
+        s[j][e] = ok ? s[j][e] * scale : kNegInf;
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // the difference first: two masked -1e30s must give exactly 0
+      alpha[r] = ex2((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2((s[j][e] - m[e / 2]) * kLog2e);
+        sum[e / 2] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = alpha[r] * l[r] + sum[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e / 2];
+
+    // O += P . V, P = hi + lo from the score registers; V rows are the B
+    // operand's rows (ldmatrix with trans)
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t) {
+      uint32_t ph[4], pl[4];
+      split_pair(s[2 * t][0], s[2 * t][1], ph[0], pl[0]);
+      split_pair(s[2 * t][2], s[2 * t][3], ph[1], pl[1]);
+      split_pair(s[2 * t + 1][0], s[2 * t + 1][1], ph[2], pl[2]);
+      split_pair(s[2 * t + 1][2], s[2 * t + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int j = 0; j < NO; j += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vs + (16 * t + 8 * ((lane / 8) % 2) + lane % 8) *
+                                       DP + 8 * j + 8 * (lane / 16));
+        mma_bf16(o[j], ph, vf[0], vf[1]);
+        mma_bf16(o[j], pl, vf[0], vf[1]);
+        mma_bf16(o[j + 1], ph, vf[2], vf[3]);
+        mma_bf16(o[j + 1], pl, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();   // the buffer is refilled by the next iteration
+  }
+
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  bf16* op = out + b * so.b + h * so.h + (long long)qr * so.r + 2 * c;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
+        __floats2bfloat162_rn(o[j][0] * inv[0], o[j][1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(op + 8 * so.r + 8 * j) =
+        __floats2bfloat162_rn(o[j][2] * inv[1], o[j][3] * inv[1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  int H, S, Sk, bq, bk, causal, window;
+  float scale;
+  Strides sq, sk, sv, so;
+};
+
+template <int D>
+int launch_f32(const Args& a, int BH, cudaStream_t st) {
+  const size_t smem = smem_floats(D, a.bq, a.bk) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid(S / bq, BH);
-  flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, Sk, bq, bk, causal,
-      window, scale);
+  const dim3 grid(a.S / a.bq, BH);
+  flash_kernel<D><<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.H, a.S,
+      a.Sk, a.bq, a.bk, a.causal, a.window, a.scale, a.sq, a.sk, a.sv, a.so);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int BH,
-             int S, int Sk, int D, int bq, int bk, int causal, int window,
-             float scale, cudaStream_t st) {
-  if (D == 32)
-    return launch<T, 32>(q, k, v, out, BH, S, Sk, bq, bk, causal, window,
-                         scale, st);
-  if (D == 64)
-    return launch<T, 64>(q, k, v, out, BH, S, Sk, bq, bk, causal, window,
-                         scale, st);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, out, BH, S, Sk, bq, bk, causal, window,
-                          scale, st);
+template <int D, int BK>
+int launch_bf16(const Args& a, int BH, cudaStream_t st) {
+  constexpr size_t smem = bf16_smem_bytes<D, BK>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bf16_mma<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(a.S / a.bq, BH);
+  flash_bf16_mma<D, BK><<<grid, a.bq * 2, smem, st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.H, a.S,
+      a.Sk, a.bq, a.causal, a.window, a.scale, a.sq, a.sk, a.sv, a.so);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int dispatch_d(const Args& a, int BH, int dtype, cudaStream_t st) {
+  if (dtype == 0) return launch_f32<D>(a, BH, st);
+  if (a.bk == 32) return launch_bf16<D, 32>(a, BH, st);
+  if (a.bk == 64) return launch_bf16<D, 64>(a, BH, st);
+  if (a.bk == 128) return launch_bf16<D, 128>(a, BH, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -249,25 +531,26 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int BH,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of the kernel takes.
-size_t flash_attention_smem_bytes(int D, int bq, int bk) {
-  return smem_floats(D, bq, bk) * sizeof(float);
-}
-
 // Launch on `stream`; returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a head dim outside (32, 64, 128).  dtype:
-// 0 = float32, 1 = bfloat16 (q, k, v and out share it).  bq divides S, bk
-// divides Sk, both at most 128, and bk is below 32 or a multiple of it.
+// cudaErrorInvalidValue for a head dim outside (32, 64, 128) or a tile
+// outside (32, 64, 128).  dtype: 0 = float32, 1 = bfloat16 (q, k, v and out
+// share it).  Batch b, head h, row r of q lives at q + b*s[0] + h*s[1] +
+// r*s[2] (elements), of k at s[3..5], of v at s[6..8], of out at s[9..11];
+// blocks cover B*H (b, h) pairs.  bq divides S and bk divides Sk.  In bf16
+// the pointers and k's and v's strides are 16-byte aligned.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int BH, int S, int Sk, int D, int bq,
-                           int bk, int causal, int window, int dtype,
-                           float scale, void* stream) {
+                           void* out, int B, int H, int S, int Sk, int D,
+                           int bq, int bk, int causal, int window, int dtype,
+                           float scale, const long long* s, void* stream) {
+  const Args a{q, k, v, out, H, S, Sk, bq, bk, causal, window, scale,
+               {s[0], s[1], s[2]}, {s[3], s[4], s[5]},
+               {s[6], s[7], s[8]}, {s[9], s[10], s[11]}};
+  if (bq != 32 && bq != 64 && bq != 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, BH, S, Sk, D, bq, bk, causal,
-                                   window, scale, st);
-  return dispatch<float>(q, k, v, out, BH, S, Sk, D, bq, bk, causal, window,
-                         scale, st);
+  if (D == 32) return dispatch_d<32>(a, B * H, dtype, st);
+  if (D == 64) return dispatch_d<64>(a, B * H, dtype, st);
+  if (D == 128) return dispatch_d<128>(a, B * H, dtype, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* flash_attention_error_string(int code) {

@@ -141,17 +141,16 @@ def matmul(x, y, *, bm: int = 128, bn: int = 128, bk: int = 128):
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               block_q: int = 128, block_k: int = 128):
     """q: (B, S, H, D), k/v: (B, Sk, H, D) model layout -> (B, S, H, D)
-    in q's dtype.  On CUDA the heads fold into the kernel layout
-    (B*H, S, D) and back, as the JAX package's ``ops.attention`` does."""
+    in q's dtype.  On CUDA the kernel reads the model layout in place
+    through its strides and writes a (B, S, H, D) tensor: one launch and
+    no copy (the JAX package's ``ops.attention`` folds the heads into
+    (B*H, S, D) and back instead; the result is the same)."""
     B, S, H, D = q.shape
     Sk = k.shape[1]
     if q.device.type == "cuda":
-        fold = lambda t: t.transpose(1, 2).reshape(  # noqa: E731
-            B * H, t.shape[1], D).contiguous()
-        out = _flash.flash_attention(fold(q), fold(k), fold(v),
-                                     causal=causal, window=window,
-                                     bq=block_q, bk=block_k)
-        return out.reshape(B, H, S, D).transpose(1, 2)
+        return _flash.flash_attention_bshd(q, k, v, causal=causal,
+                                           window=window, bq=block_q,
+                                           bk=block_k)
     _flash.resolve_tiles(S, Sk, block_q, block_k)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal,

@@ -5,9 +5,12 @@
 x (M, K) @ y (K, N) -> (M, N) in x's dtype, f32 accumulator.  The tiles
 ``(bm, bn, bk)`` are the caller's: they are clamped to the dims
 (``min(b, dim)``) and must divide them, as the TPU kernel asserts.  The
-kernel is instantiated for a fixed menu of tiles (:data:`MENU`); a tile
-outside it raises and names the menu, never silently becoming another.
-This module holds the CUDA path only: the plain version is
+kernel is instantiated for a fixed menu of tiles (:data:`MENU`: bm in
+{32, 64, 128}, bn and bk in {64, 128}, in both dtypes); a tile outside it
+raises and names the menu, never silently becoming another.  In bf16 the
+kernel loads its tiles by TMA, so x and y must be 16-byte aligned with
+rows of a multiple of 16 bytes; anything else raises (there is no
+fallback).  This module holds the CUDA path only: the plain version is
 :func:`repro_torch.kernels.ref.matmul` and the device dispatch lives in
 :mod:`repro_torch.kernels.ops`.
 """
@@ -22,8 +25,11 @@ from repro_torch.kernels import LAUNCHES, cuda_build
 NAME = "tuned_matmul"
 LAUNCHES.setdefault(NAME, 0)
 
-#: the (bm, bn, bk) tiles ``csrc/tuned_matmul.cu`` instantiates
-MENU = ((32, 128, 128), (64, 64, 64), (128, 128, 64), (128, 128, 128))
+#: the (bm, bn, bk) tiles ``csrc/tuned_matmul.cu`` instantiates: the
+#: default tiles clamped to any dim of 64 or a multiple of 128, and the JAX
+#: package's test tiles
+MENU = tuple((bm, bn, bk) for bm in (32, 64, 128) for bn in (64, 128)
+             for bk in (64, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
@@ -59,6 +65,16 @@ def resolve_tiles(M: int, N: int, K: int, bm: int, bn: int, bk: int):
     return bm, bn, bk
 
 
+def menu_tiles(M: int, N: int, K: int, bm: int, bn: int, bk: int):
+    """The tiles the kernel runs for this call: clamped to the dims,
+    dividing them, and in :data:`MENU`; raises naming the menu otherwise."""
+    tiles = resolve_tiles(M, N, K, bm, bn, bk)
+    if tiles not in MENU:
+        raise ValueError(f"tile {tiles} is not instantiated; the kernel "
+                         f"takes (bm, bn, bk) in {MENU}")
+    return tiles
+
+
 def check_shapes(x: torch.Tensor, y: torch.Tensor):
     """(M, N, K) of ``x @ y``; raises on anything but two matrices with a
     shared inner dim."""
@@ -66,6 +82,17 @@ def check_shapes(x: torch.Tensor, y: torch.Tensor):
         raise ValueError(f"matmul needs (M, K) @ (K, N), got "
                          f"{tuple(x.shape)} @ {tuple(y.shape)}")
     return x.shape[0], y.shape[1], x.shape[1]
+
+
+def check_tma_operands(x: torch.Tensor, y: torch.Tensor) -> None:
+    """Raise unless TMA can describe x and y: 16-byte aligned data and rows
+    (K and N elements) of a multiple of 16 bytes."""
+    for name, t in (("x", x), ("y", y)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for TMA")
+        if t.shape[1] * t.element_size() % 16:
+            raise ValueError(f"{name}'s rows ({t.shape[1]} elements) must "
+                             f"be a multiple of 16 bytes for TMA")
 
 
 def tuned_matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
@@ -82,10 +109,9 @@ def tuned_matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
                          f"float32 or both bfloat16)")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("x and y must be contiguous")
-    tiles = resolve_tiles(M, N, K, bm, bn, bk)
-    if tiles not in MENU:
-        raise ValueError(f"tile {tiles} is not instantiated; the kernel "
-                         f"takes (bm, bn, bk) in {MENU}")
+    tiles = menu_tiles(M, N, K, bm, bn, bk)
+    if x.dtype == torch.bfloat16:
+        check_tma_operands(x, y)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M * N == 0:
         return out

@@ -182,6 +182,71 @@ def test_bf16_kernel_tolerance_rejects_bf16_faults(fault):
         assert not ref.within_tol(got[act], want[act], torch.bfloat16)
 
 
+# chip_smoke.py's flash-attention cases, (S, Sk, D, causal, window, std):
+# the JAX kernel tests' shapes under each mask, the masking cases, and the
+# timed shape (S 512, D 64) at windows 0 and 128
+FLASH_SMOKE_CASES = [(S, S, D, causal, window, 0.5)
+                     for S, D in ((128, 64), (256, 128), (128, 32))
+                     for causal, window in ((True, 0), (False, 0),
+                                            (True, 32))] + [
+    (256, 128, 64, True, 16, 0.5), (128, 256, 64, False, 16, 0.5),
+    (256, 128, 64, False, 8, 0.5), (512, 512, 64, True, 0, 1.0),
+    (512, 512, 64, True, 128, 1.0)]
+
+
+def _flash_p_roundings(q, k, v, causal, window):
+    """The flash kernel's P.V under each way of feeding P to a bf16 tensor
+    core product, made from the plain version (one k-tile: P = exp(s -
+    row max), the sum l in f32): each returns a bf16 output."""
+    S, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhe,bkhe->bhqk", q.float(), k.float()) / D ** 0.5
+    qpos, kpos = torch.arange(S)[:, None], torch.arange(Sk)[None, :]
+    mask = torch.ones(S, Sk, dtype=torch.bool)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l_ = p.sum(-1, keepdim=True).permute(0, 2, 1, 3)
+
+    def pv(pp):
+        return torch.einsum("bhqk,bkhe->bqhe", pp, v.float()) / l_
+
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    return dict(
+        none=lambda: want.bfloat16(),
+        p_in_bf16=lambda: pv(hi).bfloat16(),
+        p_split_hi_lo=lambda: (pv(hi) + pv(lo)).bfloat16(),
+        truncating_store=lambda: (want.contiguous().view(torch.int32)
+                                  & ~0xFFFF).view(torch.float32))
+
+
+@pytest.mark.parametrize("case", FLASH_SMOKE_CASES)
+@pytest.mark.parametrize("rounding", ["none", "p_in_bf16", "p_split_hi_lo",
+                                      "truncating_store"])
+def test_bf16_tolerance_settles_how_flash_feeds_p(rounding, case):
+    """The numerical contract of the bf16 flash kernel: under
+    ``ref.KERNEL_TOL``, P rounded once to bf16 for the tensor cores fails
+    at every smoke case, P split into hi = bf16(P) and lo = bf16(P - hi)
+    (two products into one f32 sum) passes like the exact output rounded to
+    nearest, and a truncating store fails (batch 1 of the smoke's 2)."""
+    S, Sk, D, causal, window, std = case
+    rng = np.random.default_rng(21)
+
+    def draw(n):
+        return torch.tensor(rng.standard_normal((1, n, 2, D)) * std,
+                            dtype=torch.float32).bfloat16()
+
+    q, k, v = draw(S), draw(Sk), draw(Sk)
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    got = _flash_p_roundings(q, k, v, causal, window)[rounding]()
+    assert ref.within_tol(got, want, torch.bfloat16) == (
+        rounding in ("none", "p_split_hi_lo"))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,bk", [(1, 0), (3, 8)])

@@ -7,6 +7,8 @@ the Pallas kernels ``tuned_matmul`` and ``flash_attention`` in interpret
 mode, as the JAX package's own tests run them.  Shapes and tiles are those
 of ``tests/test_kernels.py``; the tolerances are its own: matmul 5e-5 in
 f32 and 2e-2 in bf16 (rtol, with atol ten times that), attention 1e-4.
+The matmul's tile menu and the attention wrapper's strides are checked
+here too, as pure functions of shapes and strides.
 The CUDA kernels themselves are held against their plain versions by the
 ``gpu`` tests (which skip without a card) and by ``chip_smoke.py``.
 """
@@ -124,6 +126,78 @@ def test_non_dividing_tiles_raise_in_both_packages():
     np.testing.assert_allclose(got.numpy(), x @ y, rtol=1e-5, atol=1e-4)
 
 
+# the default tiles (128, 128, 128) clamped to the JAX test shapes and to
+# shapes with one dim of 64: each resolves to a tile of the widened menu
+CLAMPED_DEFAULT_CASES = [shape for shape, _ in MATMUL_CASES] + [
+    (64, 128, 128), (128, 64, 128), (128, 128, 64), (64, 64, 64),
+    (64, 256, 64)]
+
+
+@pytest.mark.parametrize("shape", CLAMPED_DEFAULT_CASES)
+def test_menu_takes_every_tile_the_reference_computes(shape):
+    """The JAX test shapes at their own tiles and at the default tiles, and
+    shapes with one dim of 64, resolve to a tile of ``MENU`` (so
+    ``ops.matmul`` runs them on the card), and the Pallas reference in
+    interpret mode computes each: the port no longer refuses a tile the
+    reference accepts."""
+    M, K, N = shape
+    x, y = _mm_inputs(7, M, K, N)
+    own = [blocks for s, blocks in MATMUL_CASES if s == shape]
+    for bm, bn, bk in own + [(128, 128, 128)]:
+        assert ttm.menu_tiles(M, N, K, bm, bn, bk) in ttm.MENU
+        want = np.asarray(jtuned_matmul(jnp.asarray(x), jnp.asarray(y),
+                                        bm=bm, bn=bn, bk=bk, interpret=True))
+        np.testing.assert_allclose(want, x @ y, rtol=5e-5, atol=5e-4)
+
+
+def test_plain_matmul_is_exact_for_bf16_and_f32_for_f32():
+    """The plain matmul the kernel is held to: for bf16 operands the exact
+    product (f64 sum) rounded once to f32, for f32 operands the f32
+    product."""
+    x, y = (torch.from_numpy(a) for a in _mm_inputs(10, 64, 2048, 64))
+    exact = torch.matmul(x.bfloat16().double(), y.bfloat16().double())
+    got = ref.matmul(x.bfloat16(), y.bfloat16())
+    assert got.dtype == torch.float32
+    assert torch.equal(got, exact.float())
+    assert torch.equal(ref.matmul(x, y), torch.matmul(x, y))
+
+
+def test_tiles_outside_the_menu_still_raise_naming_it():
+    """A tile that divides the dims but is not instantiated raises, with the
+    menu in the message, and is never swapped for another tile."""
+    assert len(ttm.MENU) == 12 and len(set(ttm.MENU)) == 12
+    for M, N, K, tiles in [(64, 256, 384, (16, 128, 128)),
+                           (96, 128, 128, (128, 128, 128)),
+                           (128, 32, 128, (128, 128, 128))]:
+        with pytest.raises(ValueError, match=r"takes \(bm, bn, bk\) in "
+                                             r"\(\(32, 64, 64\)"):
+            ttm.menu_tiles(M, N, K, *tiles)
+
+
+@pytest.mark.parametrize("B,S,H,D", [(2, 8, 3, 32), (1, 16, 4, 64)])
+def test_kernel_strides_address_every_layout(B, S, H, D):
+    """The (batch, head, row) strides the attention wrapper hands the kernel
+    address each element where ``tensor.stride()`` puts it: the folded
+    (BH, S, D) layout, the contiguous model layout (batch S*H*D, head D,
+    row H*D), a head slice of a wider tensor and a (B, H, S, D) tensor
+    viewed back as (B, S, H, D)."""
+    folded = torch.zeros(B * H, S, D)
+    assert tfa.kernel_strides(folded.stride(), "bhsd") == (S * D, 0, D)
+    model = torch.zeros(B, S, H, D)
+    assert tfa.kernel_strides(model.stride(), "bshd") == (S * H * D, D, H * D)
+    views = [model, torch.zeros(B, S, H + 2, D)[:, :, 1:H + 1],
+             torch.zeros(B, H, S, D).transpose(1, 2)]
+    rng = np.random.default_rng(8)
+    for t in views:
+        sb, sh, sr = tfa.kernel_strides(t.stride(), "bshd")
+        for _ in range(20):
+            b, s_, h, d = (int(rng.integers(n)) for n in t.shape)
+            offset = (t[b, s_, h, d].data_ptr() - t.data_ptr()) // 4
+            assert offset == b * sb + h * sh + s_ * sr + d
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.kernel_strides(model.transpose(2, 3).stride(), "bshd")
+
+
 def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
     before = dict(LAUNCHES)
     x, y = map(torch.from_numpy, _mm_inputs(4, 64, 64, 64))
@@ -181,19 +255,25 @@ def test_meta_tensors_get_shapes_and_note_their_work(causal, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernels_match_plain_versions(dtype):
     """On the card: both kernels against their plain versions within
-    ref.KERNEL_TOL at every test shape, the launches counted, and a tile
-    outside the matmul menu refused by name."""
+    ref.KERNEL_TOL at every test shape (the matmul at every tile of the
+    menu, and at the default tiles on (64, 384, 256)), the launches
+    counted, and a tile outside the matmul menu refused by name."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for (M, K, N), (bm, bn, bk) in MATMUL_CASES:
+    for (M, K, N), _ in MATMUL_CASES:
         x, y = (torch.from_numpy(a).cuda().to(dtype)
                 for a in _mm_inputs(5, M, K, N))
-        n0 = LAUNCHES["tuned_matmul"]
-        got = ops.matmul(x, y, bm=bm, bn=bn, bk=bk)
-        torch.cuda.synchronize()
-        assert LAUNCHES["tuned_matmul"] == n0 + 1
-        assert ref.within_tol(got, ref.matmul(x, y), dtype)
+        for bm, bn, bk in ttm.MENU:
+            n0 = LAUNCHES["tuned_matmul"]
+            got = ops.matmul(x, y, bm=bm, bn=bn, bk=bk)
+            torch.cuda.synchronize()
+            assert LAUNCHES["tuned_matmul"] == n0 + 1
+            assert ref.within_tol(got, ref.matmul(x, y), dtype), (
+                M, K, N, bm, bn, bk)
+    x, y = (torch.from_numpy(a).cuda().to(dtype)
+            for a in _mm_inputs(5, 64, 384, 256))
+    assert ref.within_tol(ops.matmul(x, y), ref.matmul(x, y), dtype)
     with pytest.raises(ValueError, match="instantiated"):
         ops.matmul(x, y, bm=16, bn=16, bk=16)
     for S, D, bq, bk in ATTN_CASES:
@@ -206,3 +286,41 @@ def test_cuda_kernels_match_plain_versions(dtype):
             want = ref.flash_attention(q, k, v, causal=causal, window=window)
             assert ref.within_tol(got, want, dtype), (S, D, bq, bk, causal,
                                                       window)
+
+
+def _model_layout_views(dtype, view, B=2, S=256, H=2, D=64):
+    """q, k, v as non-contiguous (B, S, H, D) views on the card: head
+    slices of one wider tensor, or (B, H, S, D) tensors viewed back."""
+    rng = np.random.default_rng(9)
+    if view == "slice":
+        big = torch.from_numpy(rng.standard_normal((B, S, 3 * H + 1, D))
+                               .astype(np.float32)).cuda().to(dtype)
+        return [big[:, :, 1 + i * H:1 + (i + 1) * H] for i in range(3)]
+    return [torch.from_numpy(rng.standard_normal((B, H, S, D))
+                             .astype(np.float32)).cuda().to(dtype)
+            .transpose(1, 2) for _ in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["slice", "transposed"])
+def test_cuda_attention_reads_model_layout_views_in_place(dtype, view):
+    """On the card: ops.attention on non-contiguous model-layout views
+    matches the plain version within ref.KERNEL_TOL with exactly one launch
+    and no copy (the call allocates its output and nothing more)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = _model_layout_views(dtype, view)
+    assert not q.is_contiguous()
+    torch.cuda.synchronize()
+    n0 = LAUNCHES["flash_attention"]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = ops.attention(q, k, v, window=64, block_q=64, block_k=64)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == n0 + 1
+    assert torch.cuda.max_memory_allocated() - base <= (
+        got.numel() * got.element_size() + 1024)
+    assert got.shape == q.shape and got.is_contiguous()
+    want = ref.flash_attention(q, k, v, window=64)
+    assert ref.within_tol(got, want, dtype)
