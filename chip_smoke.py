@@ -16,16 +16,25 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    at the main paths' shapes, with the kernel's time, the plain version's
    time, one library call's time where one exists, and the bound (the
    least time the card could take for the same work, from
-   ``repro_torch.kernels.work``).  ``tuned_matmul`` is held at every tile
-   of its menu at each shape of the JAX package's kernel tests, and at the
-   default tiles on (64, 384, 256); ``flash_attention`` at every case of
-   those tests and the masking cases (S != Sk, rows that see no key); both
-   in f32 and bf16, then timed at stablelm-1.6b's full width (attention
-   also on pre-made (BH, S, D) inputs: within 10% of ``ops.attention``,
-   which reads the model layout in place and allocates nothing but its
-   output).  Their path, the ``kernels.ops`` entry point (no model of
-   either package calls them), is then driven once at those shapes with
-   the counts set to 0.
+   ``repro_torch.kernels.work``).  ``paged_attention_mq`` is held at
+   stablelm-1.6b's heads (the timed config, unchanged since the kernel's
+   first version), at qwen3-8b's and h2o-danube-1.8b's GQA widths (HD 128
+   and 80) and at one slot of full length at both, in f32 and bf16, S 1
+   and 3, block_k 0 and 8, each call timed with its achieved GB/s; at the
+   timed config it is also timed after a ~100 us spin (the timer's
+   earlier spin) and its host time per call is measured, torch.profiler
+   must count exactly the CUDA kernels the design launches per call (one),
+   and one call under ``torch.cuda.set_sync_debug_mode("error")`` must
+   raise nothing (the wrapper reads no device value on the host).  ``tuned_matmul`` is held
+   at every tile of its menu at each shape of the JAX package's kernel
+   tests, and at the default tiles on (64, 384, 256); ``flash_attention``
+   at every case of those tests and the masking cases (S != Sk, rows that
+   see no key); both in f32 and bf16, then timed at stablelm-1.6b's full
+   width (attention also on pre-made (BH, S, D) inputs: within 10% of
+   ``ops.attention``, which reads the model layout in place and allocates
+   nothing but its output).  Their path, the ``kernels.ops`` entry point
+   (no model of either package calls them), is then driven once at those
+   shapes with the counts set to 0.
 3. stablelm-1.6b at full width: parity in f32 (one paged decode step
    through the kernel against the gather path: logits and greedy tokens),
    then the paged engine in bf16 with attn_impl='paged' at spec_depth 0
@@ -47,6 +56,9 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    steps, prefills, re-advances) x layers.  (The slot pool has no
    safe-plan fallback to gate on: as in the JAX engine, only the paged
    pool has one.)
+
+``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
+timed config (both spins and the host time per call) and exits.
 
 Random weights come from a seeded torch.Generator.  The launch counts of
 each serve phase are set to 0 just before it and read just after.  The
@@ -81,6 +93,29 @@ Q_STD = 5.0
 PARITY_TOL = 1e-3
 SERVE = dict(max_len=1024, max_slots=8, page_size=16, prefill_chunk=256,
              n_requests=16, prompt=(64, 512), gen=(32, 64))
+# paged_attention_mq: (label, B, KVH, G, HD, lengths(S)) at page_size 16
+# and max_pages 64.  The first is the timed config of every PR since the
+# kernel's first (stablelm-1.6b's heads, ragged lengths up to the block
+# table's reach, one zero row); then qwen3-8b's and h2o-danube-1.8b's GQA
+# widths (HD 128 and 80) on the same lengths, and one slot at full length
+# at both, where every split of the table carries live data.
+PAGED_PAGE_SIZE, PAGED_MAX_PAGES = 16, 64
+
+
+def _ragged(S):
+    return [PAGED_MAX_PAGES * PAGED_PAGE_SIZE - (S - 1), 1000, 777, 512, 300,
+            64, 17, 0]
+
+
+def _full(S):
+    return [PAGED_MAX_PAGES * PAGED_PAGE_SIZE - (S - 1)]
+
+
+PAGED_SHAPES = [("stablelm-1.6b", 8, 32, 1, 64, _ragged),
+                ("qwen3-8b", 8, 8, 4, 128, _ragged),
+                ("h2o-danube-1.8b", 8, 8, 4, 80, _ragged),
+                ("qwen3-8b-long", 1, 8, 4, 128, _full),
+                ("h2o-danube-1.8b-long", 1, 8, 4, 80, _full)]
 # recurrent serves: prompts whose fed part (prompt[:-1]) is a multiple of
 # the chunk length 64 or at most 64 prefill through the chunk kernel, the
 # ragged ones (99, 299, 199) through the fused kernel
@@ -144,22 +179,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 30, flush_mb: int = 128) -> float:
+def time_ms(torch, fn, iters: int = 30, flush_mb: int = 128,
+            spin: int = 2_000_000) -> float:
     """Median device time of ``fn`` over ``iters`` runs, each after the L2
     cache was flushed by writing a buffer larger than it: in the decode
-    step each layer's K/V comes cold from device memory.  A ~100 us spin
-    kernel is queued after the flush, so the host has enqueued ``fn``'s
-    launch before the start event runs: a kernel of a few microseconds is
-    timed, not the wrapper's host-side enqueue.  A ~50 ms spin and three
-    untimed rounds come first, so that the card has left its idle clocks:
-    without them a kernel's first shape, timed after the host had left
-    the card idle, read 4x slower than a larger shape timed later."""
+    step each layer's K/V comes cold from device memory.  A spin kernel of
+    ``spin`` cycles (~1 ms by default) is queued after the flush, so the
+    host has enqueued ``fn``'s launch before the start event runs: a kernel
+    of a few microseconds is timed, not the wrapper's host-side enqueue.
+    With a ~100 us spin (200,000 cycles) a call whose host time exceeds
+    the spin is timed from the start event to its kernel's end, host time
+    included; the paged kernel's timed config is also timed so, and its
+    host time per call is measured on its own (``host_us_per_call``).  A
+    ~50 ms spin and three untimed rounds come first, so that the card has
+    left its idle clocks: without them a kernel's first shape, timed after
+    the host had left the card idle, read 4x slower than a larger shape
+    timed later."""
     flush = torch.empty(flush_mb << 20, dtype=torch.uint8, device="cuda")
     torch.cuda._sleep(100_000_000)
     times = []
     for i in range(iters + 3):
         flush.zero_()
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -169,6 +210,47 @@ def time_ms(torch, fn, iters: int = 30, flush_mb: int = 128) -> float:
         if i >= 3:
             times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def host_us_per_call(torch, fn, calls: int = 1000, batch: int = 100) -> float:
+    """The host's wall time of one call of ``fn``, in microseconds: ``calls``
+    calls with no synchronisation among them, after ``batch`` warm-up
+    calls.  They run in batches of ``batch`` with a synchronisation between
+    batches, outside the timed span, so the launch queue never fills and
+    the host never waits on the card: what is timed is the enqueueing."""
+    for _ in range(batch):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // batch):
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / (calls // batch * batch) * 1e6
+
+
+def paged_host_time(torch) -> None:
+    """``chip_smoke.py --paged-host-time``: only the paged kernel's timed
+    config through ``kernels.ops``, timed with the ~1 ms and the ~100 us
+    spin, and its host time per call.  It uses nothing of the package but
+    ``ops.paged_attention_mq``, so a copy of this script placed in an
+    older checkout measures that checkout's wrapper."""
+    from repro_torch.kernels import ops
+    _, B, KVH, G, HD, lens = PAGED_SHAPES[0]
+    args = paged_inputs(torch, 12, B, 1, KVH, G, HD, PAGED_PAGE_SIZE,
+                        PAGED_MAX_PAGES, lens(1), torch.bfloat16)
+
+    def call():
+        return ops.paged_attention_mq(*args)
+    call()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        log(f"[host] paged_attention_mq timed config ({SRC}): "
+            f"{time_ms(torch, call):.4f} ms (~1 ms spin), "
+            f"{time_ms(torch, call, spin=200_000):.4f} ms (~100 us spin), "
+            f"host {host_us_per_call(torch, call):.2f} us a call")
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +280,16 @@ def paged_inputs(torch, seed, B, S, KVH, G, HD, ps, MP, lengths, dtype):
                                                           lens.cuda()]
 
 
+def paged_bytes(q, block_tables, lengths, S) -> int:
+    """The bytes a paged call on these inputs must move
+    (``repro_torch.kernels.work``)."""
+    from repro_torch.kernels import work
+    B, _, KVH, G, HD = q.shape
+    return work.paged_attention(
+        B, S, KVH, G, HD, q.element_size(), block_tables.shape[1], 0,
+        lengths=[int(x) for x in lengths.cpu()])[0]
+
+
 def paged_work(q, block_tables, lengths, S):
     """The least time the card could take for a paged call on these inputs
     (its lengths: the K/V of the positions each slot's last query sees),
@@ -212,65 +304,126 @@ def paged_work(q, block_tables, lengths, S):
 
 
 def kernel_phase(torch) -> dict:
+    """paged_attention_mq against its plain version at every shape of
+    PAGED_SHAPES (f32 and bf16, S 1 and 3, block_k 0 and 8), each call
+    timed with its achieved GB/s; at the timed config (bf16, S 1, block_k
+    0) also the plain version, the library call and the bound, the CUDA
+    kernels one wrapper call launches (torch.profiler) and one call under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Returns the kernel's
+    record."""
     from library_yardsticks import dense_paged_inputs, paged_attention_library
     from repro_torch.kernels import ops, ref
-    B, KVH, G, HD, ps, MP = 8, 32, 1, 64, 16, 64
-    record = None
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        rtol, atol = ref.KERNEL_TOL[dtype]
-        for S in (1, 3):
-            # ragged lengths up to the block table's reach, one zero row
-            lengths = [MP * ps - (S - 1), 1000, 777, 512, 300, 64, 17, 0]
-            args = paged_inputs(torch, 11 + S, B, S, KVH, G, HD, ps, MP,
-                                lengths, dtype)
-            want = ref.paged_attention_mq(*args)
-            act = args[4] > 0
-            for bk in (0, 8):
-                got = ops.paged_attention_mq(*args, block_k=bk)
-                torch.cuda.synchronize()
-                check(got.dtype == dtype and got.shape == args[0].shape,
-                      f"kernel output {got.dtype} {tuple(got.shape)}")
-                check(bool(torch.isfinite(got.float()).all()),
-                      "kernel output not finite (zero-length row included)")
-                g, w = got.float()[act], want[act]
-                err = float((g - w).abs().max())
-                ok = ref.within_tol(g, w, dtype)
-                ms = time_ms(torch, lambda: ops.paged_attention_mq(
-                    *args, block_k=bk))
-                log(f"[kernel] paged_attention_mq {dname} S={S} "
-                    f"block_k={bk}: max_abs_err={err:.3e} (tol {atol} + "
-                    f"{rtol:.3g} x |plain|, max|plain|="
-                    f"{float(w.abs().max()):.3f}) "
-                    f"ms={ms:.4f}")
-                check(ok, f"paged_attention_mq {dname} S={S} block_k={bk} "
-                          f"disagrees with its plain version: {err}")
-                if dname == "bfloat16" and S == 1 and bk == 0:
-                    # the main path's decode call: time the yardsticks
-                    plain_ms = time_ms(
-                        torch, lambda: ref.paged_attention_mq(*args))
-                    dense = dense_paged_inputs(*args)
-                    lib_ms = time_ms(
-                        torch, lambda: paged_attention_library(*dense))
-                    bound_ms, bound_by = paged_work(args[0], args[3], args[4],
-                                                    S)
-                    record = {
-                        "name": "paged_attention_mq", "route": "cuda",
-                        "source": "src/repro_torch/kernels/csrc/"
-                                  "paged_attention.cu",
-                        "replaces": "src/repro/kernels/paged_attention.py:156",
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": lib_ms,
-                        "shape": f"bf16 B={B} S={S} KVH={KVH} G={G} HD={HD} "
-                                 f"page_size={ps} max_pages={MP} "
-                                 f"lengths={lengths}",
-                    }
-                    log(f"[kernel] timed config {record['shape']}: "
-                        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                        f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                        f"({bound_by})")
+    from repro_torch.kernels import paged_attention as pa
+    ps, MP = PAGED_PAGE_SIZE, PAGED_MAX_PAGES
+    record, timed = None, {}
+    for label, B, KVH, G, HD, lens in PAGED_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            rtol, atol = ref.KERNEL_TOL[dtype]
+            for S in (1, 3):
+                lengths = lens(S)
+                args = paged_inputs(torch, 11 + S, B, S, KVH, G, HD, ps, MP,
+                                    lengths, dtype)
+                want = ref.paged_attention_mq(*args)
+                act = args[4] > 0
+                bound_ms, bound_by = paged_work(args[0], args[3], args[4], S)
+                nbytes = paged_bytes(args[0], args[3], args[4], S)
+                p = pa.plan(B, S, KVH, G, HD, args[0].element_size(), ps, MP,
+                            pa.sm_count(args[0].device))
+                for bk in (0, 8):
+                    got = ops.paged_attention_mq(*args, block_k=bk)
+                    torch.cuda.synchronize()
+                    check(got.dtype == dtype and got.shape == args[0].shape,
+                          f"kernel output {got.dtype} {tuple(got.shape)}")
+                    check(bool(torch.isfinite(got.float()).all()),
+                          "kernel output not finite (zero-length row "
+                          "included)")
+                    g, w = got.float()[act], want[act]
+                    err = float((g - w).abs().max())
+                    ok = ref.within_tol(g, w, dtype)
+                    ms = time_ms(torch, lambda: ops.paged_attention_mq(
+                        *args, block_k=bk))
+                    log(f"[kernel] paged_attention_mq {label} {dname} B={B} "
+                        f"S={S} KVH={KVH} G={G} HD={HD} block_k={bk}: "
+                        f"max_abs_err={err:.3e} (tol {atol} + {rtol:.3g} x "
+                        f"|plain|, max|plain|={float(w.abs().max()):.3f}) "
+                        f"ms={ms:.4f} ({nbytes / ms / 1e6:.1f} GB/s, bound "
+                        f"{bound_ms:.5f} ms {bound_by}; {p.blocks(B, KVH)} "
+                        f"blocks, {p.n_split} splits of "
+                        f"{p.pages_per_split} pages)")
+                    check(ok, f"paged_attention_mq {label} {dname} S={S} "
+                              f"block_k={bk} disagrees with its plain "
+                              f"version: {err}")
+                    if label == PAGED_SHAPES[0][0] and dname == "bfloat16" \
+                            and bk == 0:
+                        timed[S] = (ms, err, args, bound_ms, bound_by, nbytes)
+    # the timed config: the main path's decode call (S 1) and verify (S 3)
+    ms, err, args, bound_ms, bound_by, nbytes = timed[1]
+    ms_short = time_ms(torch, lambda: ops.paged_attention_mq(*args),
+                       spin=200_000)
+    host_us = host_us_per_call(torch, lambda: ops.paged_attention_mq(*args))
+    plain_ms = time_ms(torch, lambda: ref.paged_attention_mq(*args))
+    dense = dense_paged_inputs(*args)
+    lib_ms = time_ms(torch, lambda: paged_attention_library(*dense))
+    n_kernels = kernels_per_call(
+        torch, lambda: ops.paged_attention_mq(*args))
+    check(n_kernels == pa.KERNELS_PER_CALL,
+          f"one paged_attention_mq call launched {n_kernels} CUDA kernels, "
+          f"the design launches {pa.KERNELS_PER_CALL}")
+    # the wrapper reads no device value on the host: no synchronisation
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.paged_attention_mq(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    B, _, KVH, G, HD = args[0].shape
+    lengths = [int(x) for x in args[4].cpu()]
+    record = {
+        "name": "paged_attention_mq", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:156",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        "gb_per_s": nbytes / ms / 1e6, "ms_s3": timed[3][0],
+        "ms_short_spin": ms_short, "host_us": host_us,
+        "kernels_per_call": n_kernels,
+        "shape": f"bf16 B={B} S=1 KVH={KVH} G={G} HD={HD} page_size={ps} "
+                 f"max_pages={MP} lengths={lengths}",
+    }
+    log(f"[kernel] timed config {record['shape']}: kernel {ms:.4f} ms "
+        f"({record['gb_per_s']:.1f} GB/s, {bound_ms / ms:.1%} of the "
+        f"bound's rate; {ms_short:.4f} ms after a ~100 us spin), S=3 "
+        f"{timed[3][0]:.4f} ms ({timed[3][5] / timed[3][0] / 1e6:.1f} "
+        f"GB/s), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}); host {host_us:.2f} us a call; "
+        f"CUDA kernels a call: {n_kernels}; a call under sync debug mode "
+        f"'error' raised nothing")
     return record
+
+
+def kernels_per_call(torch, fn, calls: int = 20) -> int:
+    """The CUDA kernels one call of ``fn`` launches, counted by
+    torch.profiler over ``calls`` calls (after a warm-up call, which may
+    make buffers): every device op the profiler records, divided by
+    ``calls`` and rounded (the profiler can miss an op at the edge of its
+    window).  A window that recorded no device op at all measured nothing
+    and is taken once more."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    log(f"[kernel] profiler: {calls} calls ran {len(names)} device op(s): "
+        f"{sorted(set(n[:60] for n in names))}")
+    return round(len(names) / calls)
 
 
 def scan_inputs(torch, name, seed, B, T):
@@ -1056,6 +1209,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--paged-host-time"]:
+        log(f"[card] {card_line()}")
+        paged_host_time(torch)
+        return 0
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 

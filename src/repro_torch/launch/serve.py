@@ -16,6 +16,12 @@ the mode ``--scan-mode`` resolves.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --full --device cuda --paged off --scan-mode chunk --spec-depth 2
 
+  # where the device time goes, at chip_smoke.py's serve traffic
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --device cuda \\
+      --attn-impl paged --profile --requests 16 --prompt-len 64 \\
+      --prompt-max 512 --gen-min 32 --gen-max 64 --slots 8 --max-len 1024 \\
+      --page-size 16 --prefill-chunk 256 --spec-depth 0 --arrival burst
+
   # reduced config on the CPU (the kernels' plain versions stand in)
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --dtype float32 --attn-impl paged --spec-depth 2
@@ -65,7 +71,9 @@ def build_trace(args, vocab_size: int) -> list[Request]:
     reqs = []
     for i in range(args.requests):
         gen = int(rng.integers(args.gen_min, args.gen_max + 1))
-        prompt = rng.integers(0, vocab_size, args.prompt_len).astype(np.int32)
+        n = (int(rng.integers(args.prompt_len, args.prompt_max + 1))
+             if args.prompt_max > args.prompt_len else args.prompt_len)
+        prompt = rng.integers(0, vocab_size, n).astype(np.int32)
         reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=gen,
                             arrival_s=float(arrivals[i])))
     return reqs
@@ -165,6 +173,9 @@ def main(argv=None):
                          "generate() baseline")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--prompt-max", type=int, default=0,
+                    help="draw each prompt's length from [--prompt-len, "
+                         "--prompt-max] (default: every prompt --prompt-len)")
     ap.add_argument("--gen-min", type=int, default=4)
     ap.add_argument("--gen-max", type=int, default=16)
     ap.add_argument("--arrival", choices=("poisson", "staggered", "burst"),
@@ -259,6 +270,8 @@ def main(argv=None):
                     help="serve the trace once to warm up, then again "
                          "under torch.profiler, and print where the time "
                          "went")
+    ap.add_argument("--profile-top", type=int, default=12,
+                    help="device kernels and host ops --profile lists")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -270,7 +283,8 @@ def main(argv=None):
     params = model.init(args.seed, dtype=dtype, device=args.device)
     plan = RegionPlan(region_configs={"layer/attn": RegionConfig(
         attn_impl="paged" if args.attn_impl == "paged" else "")})
-    max_len = args.max_len or args.prompt_len + args.gen_max + 1
+    max_len = (args.max_len
+               or max(args.prompt_len, args.prompt_max) + args.gen_max + 1)
     dtree = None
     if args.dtree:
         from repro_torch.core.dtree import DecisionTree
@@ -326,7 +340,7 @@ def main(argv=None):
         res = run_static(engine, reqs, args.slots)
     elif args.profile:
         engine.serve(build_trace(args, cfg.vocab_size))     # warm-up
-        res = profile_serve(engine, reqs)
+        res = profile_serve(engine, reqs, top=args.profile_top)
     else:
         res = engine.serve(reqs)
     for n_active, decisions in res.get("decisions", []):

@@ -247,17 +247,176 @@ def test_bf16_tolerance_settles_how_flash_feeds_p(rounding, case):
         rounding in ("none", "p_split_hi_lo"))
 
 
+# the split plan: (B, S, KVH, G, HD, item, page_size, max_pages, n_sm)
+PLAN_SHAPES = [(8, 1, 32, 1, 64, 2, 16, 64, 132),    # the smoke's timed call
+               (8, 3, 8, 4, 128, 2, 16, 64, 132),    # qwen3-8b verify
+               (8, 1, 8, 4, 80, 4, 16, 64, 132),     # h2o-danube-1.8b, f32
+               (1, 1, 8, 4, 128, 2, 16, 64, 132),
+               (3, 2, 2, 3, 16, 4, 8, 5, 7),
+               (2, 1, 1, 1, 256, 4, 4, 9, 132),
+               (5, 4, 2, 2, 32, 2, 128, 3, 16)]
+
+
+def _splits(p, max_pages):
+    """The page runs of one block-table row the kernel's blocks walk under
+    plan ``p``, split by split (block ``k`` takes pages ``k * pps`` up to
+    the next split's first)."""
+    pps = p.pages_per_split
+    return [range(k * pps, min(max_pages, (k + 1) * pps))
+            for k in range(p.n_split)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_split_plan_is_a_function_of_shapes_covering_each_page_once(shape):
+    """The plan reads shapes only (the same call gives the same plan) and
+    its splits cover every page of a block-table row exactly once, in
+    order; its row chunks cover every query row."""
+    B, S, KVH, G, HD, item, ps, MP, n_sm = shape
+    p = tpa.plan(*shape)
+    assert p == tpa.plan(*shape)
+    pages = [i for run in _splits(p, MP) for i in run]
+    assert pages == list(range(MP))
+    assert all(len(run) for run in _splits(p, MP))
+    assert (p.row_chunks - 1) * p.rows < S * G <= p.row_chunks * p.rows
+    # a row's 16-byte vectors fit the lane group, which is no wider than
+    # it needs to be
+    nvec = HD * item // 16
+    assert p.lanes <= 32 and p.lanes * p.vecs >= nvec
+    assert p.lanes == 1 or p.lanes // 2 * p.vecs < nvec
+    # q and the accumulator of a block's rows stay in registers
+    assert p.rows * p.vecs * (16 // item) <= 32
+
+
+def test_plan_is_memoised_and_buffers_kept_per_stream():
+    """The engine makes the same call every layer of every step: the plan
+    is computed once per shape, and the merge counters and partials'
+    workspace are made once per (device, stream), zeroed, and grown only
+    when a call needs more."""
+    shape = (8, 1, 32, 1, 64, 2, 16, 64, 132)
+    tpa.plan(*shape)
+    hits = tpa.plan.cache_info().hits
+    assert tpa.plan(*shape) is tpa.plan(*shape)
+    assert tpa.plan.cache_info().hits == hits + 2
+    bufs, cpu = {}, torch.device("cpu")
+    a = tpa._stream_buffer(bufs, cpu, 7, 10, torch.int32)
+    assert a.dtype == torch.int32 and a.numel() >= 10 and not a.any()
+    assert tpa._stream_buffer(bufs, cpu, 7, a.numel(), torch.int32) is a
+    assert tpa._stream_buffer(bufs, cpu, 8, 10, torch.int32) is not a
+    big = tpa._stream_buffer(bufs, cpu, 7, a.numel() + 1, torch.int32)
+    assert big.numel() > a.numel() and not big.any()
+    assert tpa._stream_buffer(bufs, cpu, 7, 10, torch.int32) is big
+
+
+@pytest.mark.parametrize("B", [8, 1])
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("item", [2, 4])
+def test_split_plan_fills_the_card_at_qwen3_widths(B, S, item):
+    """At qwen3-8b's heads (KVH 8, G 4, HD 128) and max_pages 64 the grid
+    holds at least as many blocks as the H100 has SMs, at 8 slots and at
+    one; the timed smoke config walks 16 pages a block (four rounds of 64
+    positions)."""
+    p = tpa.plan(B, S, 8, 4, 128, item, 16, 64, 132)
+    assert p.blocks(B, 8) >= 132
+    assert tpa.plan(8, 1, 32, 1, 64, 2, 16, 64, 132).pages_per_split == 16
+
+
+def _split_merge(q, kp, vp, bt, lengths, p):
+    """A plain-PyTorch emulation of the kernel's split-and-merge: each
+    split's partial softmax state (m, l, acc) over the visible positions
+    of its pages (masked positions weigh 0), then the merge in which a
+    split with l = 0 weighs 0.  Returns the output (f32) and the number of
+    (split, row) partials that were empty or fully masked."""
+    B, S, KVH, G, D = q.shape
+    ps, MP = kp.shape[1], bt.shape[1]
+    k = kp[bt.long()].reshape(B, MP * ps, KVH, D).float()
+    v = vp[bt.long()].reshape(B, MP * ps, KVH, D).float()
+    s = torch.einsum("bshge,bkhe->bshgk", q.float(), k) / D ** 0.5
+    t = torch.arange(MP * ps)
+    sees = t[None, None] < (lengths.long()[:, None]
+                            + torch.arange(S))[..., None]       # (B, S, T)
+    m_all, l_all, acc_all, empty = [], [], [], 0
+    for run in _splits(p, MP):
+        in_run = (t >= run.start * ps) & (t < run.stop * ps)
+        vis = (sees & in_run)[:, :, None, None, :]              # (B,S,1,1,T)
+        sm = torch.where(vis, s, torch.full_like(s, -1e30))
+        m = sm.amax(-1, keepdim=True)
+        e = torch.where(vis, torch.exp(sm - m), torch.zeros_like(s))
+        l = e.sum(-1, keepdim=True)
+        empty += int((l == 0).sum())
+        m_all.append(m)
+        l_all.append(l)
+        acc_all.append(torch.einsum("bshgk,bkhe->bshge", e, v))
+    m, l, acc = (torch.stack(x) for x in (m_all, l_all, acc_all))
+    live = l > 0
+    big = torch.where(live, m, torch.full_like(m, -1e30)).amax(0)
+    w = torch.where(live, torch.exp(m - big), torch.zeros_like(m))
+    out = (w * acc).sum(0) / (w * l).sum(0).clamp_min(1e-30)
+    return out, empty
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("shape", [(3, 2, 2, 32, 8, 6, [40, 16, 0], 7),
+                                   (2, 1, 4, 16, 4, 16, [62, 3], 64),
+                                   (4, 2, 1, 80, 8, 8, [62, 32, 8, 0], 16)])
+def test_split_merge_emulation_matches_plain_version(shape, S):
+    """The split-and-merge the kernel does, emulated in plain PyTorch with
+    the kernel's plan, equals ``ref.paged_attention_mq`` within f32
+    rounding on every active row; the cases hold empty splits (past a
+    slot's length) and splits that mask out a row entirely (the staircase
+    crossing a split), and zero-length rows stay finite."""
+    B, KVH, G, D, ps, MP, lengths, n_sm = shape
+    args = _t(*_inputs(8, B, S, KVH, G, D, ps, MP, lengths, S - 1,
+                       q_std=5.0))
+    p = tpa.plan(B, S, KVH, G, D, 4, ps, MP, n_sm)
+    got, empty = _split_merge(*args, p)
+    want = ref.paged_attention_mq(*args)
+    act = args[4] > 0
+    assert p.n_split > 1 and empty > 0
+    torch.testing.assert_close(got[act], want[act], **TOL)
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("hd,ok", [(80, True), (8, True), (256, True),
+                                   (12, False), (0, False), (264, False)])
+def test_head_width_rule(hd, ok):
+    """The kernel takes any head width that is a multiple of 8 up to 256
+    (h2o-danube-1.8b's 80 included) and names the rule otherwise."""
+    if ok:
+        tpa.check_head_dim(hd)
+        assert tpa.plan(2, 1, 8, 4, hd, 2, 16, 8, 132).lanes >= 1
+    else:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            tpa.check_head_dim(hd)
+
+
+def _gpu_case_args(case, S):
+    """The gpu test's inputs: the peaked-softmax check, then qwen3-8b's and
+    h2o-danube-1.8b's GQA widths on ragged lengths, and one slot of full
+    length at max_pages 64 (every split of the table live)."""
+    if case == "peaked":
+        return _peaked_bf16_args(6, S)
+    B, KVH, G, D, ps, MP, lengths = {
+        "qwen3-8b": (4, 8, 4, 128, 16, 8, [100, 77, 40, 0]),
+        "h2o-danube-1.8b": (4, 8, 4, 80, 16, 8, [100, 77, 40, 0]),
+        "long-slot": (1, 8, 4, 128, 16, 64, [16 * 64 - (S - 1)])}[case]
+    return _t(*_inputs(9, B, S, KVH, G, D, ps, MP, lengths, S - 1,
+                       q_std=5.0))
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["peaked", "qwen3-8b", "h2o-danube-1.8b",
+                                  "long-slot"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,bk", [(1, 0), (3, 8)])
-def test_cuda_kernel_matches_plain_version(dtype, S, bk):
+def test_cuda_kernel_matches_plain_version(dtype, S, bk, case):
     """The CUDA kernel against the plain version on the card (skips here),
-    on the peaked-softmax inputs, under ``ref.KERNEL_TOL``."""
+    on peaked-softmax inputs at the GQA widths of qwen3-8b and
+    h2o-danube-1.8b and a long slot, under ``ref.KERNEL_TOL``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    q, kp, vp, bt, lengths = [t.cuda() for t in _peaked_bf16_args(6, S)]
+    q, kp, vp, bt, lengths = [t.cuda() for t in _gpu_case_args(case, S)]
     q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
     before = LAUNCHES[tpa.NAME]
     got = ops.paged_attention_mq(q, kp, vp, bt, lengths, block_k=bk)

@@ -232,3 +232,27 @@ def test_features_outside_the_slice_raise(models, monkeypatch):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(model, tparams, device="cpu", **kw).serve(
                 _traces([np.arange(4)], [2])[1])
+
+
+@pytest.mark.parametrize("arrival", ["poisson", "burst"])
+def test_trace_matches_jax_and_draws_prompt_lengths(arrival):
+    """The launcher's trace equals the JAX launcher's for the same flags;
+    ``--prompt-max`` draws each prompt's length from [--prompt-len,
+    --prompt-max] (the smoke's serve traffic) and leaves the default trace
+    as it was."""
+    import argparse
+
+    from repro.launch.serve import build_trace as jbuild_trace
+    from repro_torch.launch.serve import build_trace
+    args = argparse.Namespace(seed=3, arrival=arrival, rate=20.0,
+                              requests=16, gen_min=32, gen_max=64,
+                              prompt_len=64, prompt_max=0)
+    want, got = jbuild_trace(args, 256), build_trace(args, 256)
+    assert [(r.prompt.tolist(), r.max_new_tokens, r.arrival_s)
+            for r in got] == [(r.prompt.tolist(), r.max_new_tokens,
+                               r.arrival_s) for r in want]
+    args.prompt_max = 512
+    ranged = build_trace(args, 256)
+    lens = [len(r.prompt) for r in ranged]
+    assert all(64 <= n <= 512 for n in lens) and len(set(lens)) > 1
+    assert [r.arrival_s for r in ranged] == [r.arrival_s for r in want]
