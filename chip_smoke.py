@@ -25,9 +25,13 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    earlier spin) and its host time per call is measured, torch.profiler
    must count exactly the CUDA kernels the design launches per call (one),
    and one call under ``torch.cuda.set_sync_debug_mode("error")`` must
-   raise nothing (the wrapper reads no device value on the host).  ``tuned_matmul`` is held
-   at every tile of its menu at each shape of the JAX package's kernel
-   tests, and at the default tiles on (64, 384, 256); ``flash_attention``
+   raise nothing (the wrapper reads no device value on the host).  The
+   four scan kernels are held and timed at every shape of SCAN_SHAPES;
+   the two chunk scans' CUDA kernels a call are counted by torch.profiler
+   against ``linear_scan.kernels_per_call`` (three for several chunks,
+   two for one) with one call under sync debug mode, and ``wkv_chunk`` is
+   also held at decays down to 1e-30.  ``tuned_matmul`` is held at every
+   tile of its menu at each shape of the JAX package's kernel tests, and at the default tiles on (64, 384, 256); ``flash_attention``
    at every case of those tests and the masking cases (S != Sk, rows that
    see no key); both in f32 and bf16, then timed at stablelm-1.6b's full
    width (attention also on pre-made (BH, S, D) inputs: within 10% of
@@ -55,7 +59,9 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    kernels launched, and their launches equal to the model calls (pool
    steps, prefills, re-advances) x layers.  (The slot pool has no
    safe-plan fallback to gate on: as in the JAX engine, only the paged
-   pool has one.)
+   pool has one.)  The scan calls of both serves are counted by (kernel,
+   B, T, chunk); after both models each scan kernel is timed at every
+   such shape, and launches x (time - bound) is summed over them.
 
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits.
@@ -124,14 +130,21 @@ RECURRENT_SERVE = dict(max_len=1024, max_slots=8, n_requests=16, gen=(32, 64),
                                 257, 100, 513, 300, 65, 129, 200))
 # the scan kernels' shapes, (B, T, chunk): decode at 8 slots (T=1, and
 # T=3 for a spec_depth 2 verify, chunk 3 in chunk mode), one sequence's
-# prefill aligned (T=512) and ragged (T=300); the first entry of each list
-# is the timed call of the kernel's record
+# prefill aligned (T=512, 256, 64) and ragged (T=300), chunk 64 and 256;
+# every shape is timed, the first entry of each list is the kernel's
+# record.  The chunk kernels' CUDA kernels a call are counted at their
+# first two shapes (several chunks, one chunk).
 SCAN_SHAPES = {
     "wkv_fused": [(8, 1, 0), (8, 3, 0), (1, 512, 0), (1, 300, 0)],
-    "wkv_chunk": [(1, 512, 64), (8, 3, 3), (1, 300, 64)],
+    "wkv_chunk": [(1, 512, 64), (8, 3, 3), (1, 300, 64), (1, 256, 64),
+                  (1, 64, 64), (1, 512, 256)],
     "ssd_fused": [(8, 1, 0), (8, 3, 0), (1, 512, 0), (1, 300, 0)],
-    "ssd_chunk": [(1, 512, 64), (8, 3, 3), (1, 512, 256), (1, 300, 64)],
+    "ssd_chunk": [(1, 512, 64), (8, 3, 3), (1, 512, 256), (1, 300, 64),
+                  (1, 256, 64), (1, 64, 64)],
 }
+# wkv_chunk with half its decays at w = 1e-30 (a 16-step sub-tile spans
+# e^-1100): (B, T, chunk)
+SCAN_EXTREME = (1, 512, 64)
 # the families' scan widths (configs/rwkv6_3b.py, configs/zamba2_2_7b.py)
 WKV_H, WKV_N = 40, 64
 SSD_H, SSD_P, SSD_N = 80, 64, 64
@@ -477,12 +490,67 @@ def scan_plain_call(name, args, chunk):
 def scan_work(torch, name, B, T):
     """The least time in ms the card could take for one scan call (f32),
     and what bounds it (``repro_torch.kernels.work``: the chunked forms
-    compute the same function, so the chunk length does not enter)."""
+    compute the same function, so the chunk length does not enter).  The
+    operations are over the rate of the units the kernels use, the f32
+    CUDA cores (:func:`scan_rate`)."""
     from repro_torch.core.roofline import card_for_device
     from repro_torch.kernels import work
     nbytes, ops = (work.wkv(B, WKV_H, T, WKV_N) if name.startswith("wkv")
                    else work.ssd(B, SSD_H, T, SSD_P, SSD_N))
     return work.bound_ms(nbytes, ops, torch.float32, card_for_device("cuda"))
+
+
+def scan_rate(torch) -> str:
+    """The peak rate that scan_work's operations are taken at."""
+    from repro_torch.core.roofline import card_for_device, peak_ops
+    peak = peak_ops(torch.float32, card_for_device("cuda"))
+    return f"f32 CUDA cores, {peak / 1e12:.0f} TFLOP/s"
+
+
+def scan_checks(torch, name, args, chunk) -> tuple:
+    """The chunk kernel's CUDA kernels a call (torch.profiler), held to
+    ``linear_scan.kernels_per_call``, and one call under sync debug mode
+    'error' (the wrapper reads nothing back and synchronises nothing)."""
+    from repro_torch.kernels import linear_scan as ls
+    T = args[0].shape[2]
+    n = kernels_per_call(torch, scan_kernel_call(name, args, chunk))
+    want = ls.kernels_per_call(T, chunk)
+    check(n == want, f"{name} T={T} chunk={chunk}: {n} CUDA kernels a "
+                     f"call, the design launches {want}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scan_kernel_call(name, args, chunk)()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return n, want
+
+
+def scan_extreme_phase(torch) -> float:
+    """wkv_chunk at SCAN_EXTREME with half its decays at 1e-30: finite and
+    within ref.KERNEL_TOL of the plain chunked form and of the plain
+    recurrence.  Returns the larger error."""
+    from repro_torch.kernels import ref
+    B, T, chunk = SCAN_EXTREME
+    args = scan_inputs(torch, "wkv_chunk", 7, B, T)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    tiny = torch.rand(args[3].shape, generator=g, device="cuda") < 0.5
+    args[3] = torch.where(tiny, torch.full_like(args[3], 1e-30), args[3])
+    got = scan_kernel_call("wkv_chunk", args, chunk)()
+    err = 0.0
+    for want in (scan_plain_call("wkv_chunk", args, chunk)(),
+                 scan_plain_call("wkv_fused", args, 0)()):
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            check(bool(torch.isfinite(g_).all()),
+                  "wkv_chunk at extreme decays: not finite")
+            err = max(err, float((g_ - w_).abs().max()))
+            check(ref.within_tol(g_, w_, torch.float32),
+                  f"wkv_chunk at extreme decays disagrees: {err}")
+    log(f"[scan] wkv_chunk B={B} T={T} chunk={chunk} with half the decays "
+        f"at 1e-30: finite, max_abs_err={err:.3e} against the plain "
+        f"chunked form and the plain recurrence")
+    return err
 
 
 def scan_kernel_phase(torch) -> dict:
@@ -491,7 +559,7 @@ def scan_kernel_phase(torch) -> dict:
     (1e-5 + 1e-5 x |plain|: both sum in f32, in different orders).
     Returns the kernels' records, timed at each list's first shape."""
     from repro_torch.kernels import ref
-    records = {}
+    records, rate = {}, scan_rate(torch)
     for name, shapes in SCAN_SHAPES.items():
         for i, (B, T, chunk) in enumerate(shapes):
             args = scan_inputs(torch, name, 100 + i, B, T)
@@ -507,12 +575,19 @@ def scan_kernel_phase(torch) -> dict:
                 errs.append(float((g - w).abs().max()))
                 ok &= ref.within_tol(g, w, torch.float32)
             ms = time_ms(torch, kern)
+            shape_bound, _ = scan_work(torch, name, B, T)
             log(f"[scan] {name} B={B} T={T} chunk={chunk}: max_abs_err "
                 f"out={errs[0]:.3e} state={errs[1]:.3e} (tol 1e-5 + 1e-5 x "
                 f"|plain|, max|plain| out={float(want[0].abs().max()):.3f} "
-                f"state={float(want[1].abs().max()):.3f}) ms={ms:.4f}")
+                f"state={float(want[1].abs().max()):.3f}) ms={ms:.4f} "
+                f"(bound {shape_bound:.5f})")
             check(ok, f"{name} B={B} T={T} chunk={chunk} disagrees with its "
                       f"plain version: {errs}")
+            if chunk and i < 2:
+                n, _ = scan_checks(torch, name, args, chunk)
+                log(f"[scan] {name} B={B} T={T} chunk={chunk}: {n} CUDA "
+                    f"kernels a call; a call under sync debug mode 'error' "
+                    f"raised nothing")
             if i == 0:
                 plain_ms = time_ms(torch, plain, iters=5 if T > 64 else 30)
                 bound_ms, bound_by = scan_work(torch, name, B, T)
@@ -528,13 +603,65 @@ def scan_kernel_phase(torch) -> dict:
                     "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     # no single PyTorch call computes a WKV or SSD scan
-                    "library_ms": None,
+                    "library_ms": None, "bound_rate": rate,
                     "shape": f"f32 B={B} T={T} chunk={chunk}",
+                    "ms_by_shape": {},
                 }
                 log(f"[scan] timed {name} {records[name]['shape']}: kernel "
                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                    f"{bound_ms:.4f} ms ({bound_by}), library: none")
+                    f"{bound_ms:.4f} ms ({bound_by}; {rate}), library: none")
+            records[name]["ms_by_shape"][f"{B},{T},{chunk}"] = ms
+    records["wkv_chunk"]["extreme_max_abs_err"] = scan_extreme_phase(torch)
     return records
+
+
+@contextlib.contextmanager
+def scan_shape_counts():
+    """Count the scan wrappers' CUDA calls by (kernel, B, T, chunk) while
+    the block runs: the shapes the serves really launch.  (The wrappers'
+    own LAUNCHES count calls, not shapes.)"""
+    from repro_torch.kernels import linear_scan as ls
+    counts: dict = {}
+    saved = ls.wkv, ls.ssd
+
+    def counting(fn, family):
+        def call(*args, chunk=0):
+            B, _, T = args[0].shape[:3]
+            key = (f"{family}_{'chunk' if chunk else 'fused'}", B, T, chunk)
+            counts[key] = counts.get(key, 0) + 1
+            return fn(*args, chunk=chunk)
+        return call
+
+    ls.wkv, ls.ssd = counting(saved[0], "wkv"), counting(saved[1], "ssd")
+    try:
+        yield counts
+    finally:
+        ls.wkv, ls.ssd = saved
+
+
+def serve_shape_phase(torch, counts: dict, records: dict) -> None:
+    """Each scan kernel at every (B, T, chunk) the serves launched, timed
+    on fresh inputs: its launches by shape, the time a call and the bound
+    at each, and launches x (time - bound) summed over them (the device
+    time the serves lose to the kernel against its bound)."""
+    by_kernel: dict = {}
+    for (name, B, T, chunk), n in sorted(counts.items()):
+        args = scan_inputs(torch, name, 300, B, T)
+        ms = time_ms(torch, scan_kernel_call(name, args, chunk), iters=10)
+        bound_ms, _ = scan_work(torch, name, B, T)
+        by_kernel.setdefault(name, []).append(
+            {"B": B, "T": T, "chunk": chunk, "launches": n, "ms": ms,
+             "bound_ms": bound_ms})
+        log(f"[serve-shapes] {name} B={B} T={T} chunk={chunk}: {n} "
+            f"launches x ({ms:.4f} - {bound_ms:.5f}) ms = "
+            f"{n * (ms - bound_ms):.1f} ms")
+    for name, rows in by_kernel.items():
+        loss = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows)
+        records[name]["launches_by_shape"] = rows
+        records[name]["serve_loss_ms"] = loss
+        log(f"[serve-shapes] {name}: {sum(r['launches'] for r in rows)} "
+            f"launches over {len(rows)} shapes, launches x (time - bound) "
+            f"= {loss:.1f} ms")
 
 
 def _dense_check(torch, name, got, want, dtype, what) -> float:
@@ -1054,11 +1181,12 @@ def recurrent_parity_phase(torch, model, params, dev, *, B=2,
     check(same, "greedy tokens disagree between kernel and plain scans")
 
 
-def recurrent_serve_phase(torch, model, params, dev, kernels,
+def recurrent_serve_phase(torch, model, params, dev, kernels, shape_counts,
                           serve=RECURRENT_SERVE) -> dict:
     """The slot-pool path: scan_mode auto at spec_depth 0, then scan_mode
     chunk at spec_depth 2.  Returns the ``kernels``' launch counts over
-    both serves (set to 0 just before the first, read after the second)."""
+    both serves (set to 0 just before the first, read after the second),
+    and adds their calls by (kernel, B, T, chunk) to ``shape_counts``."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.serve.scheduler import Request, RequestState
@@ -1077,7 +1205,10 @@ def recurrent_serve_phase(torch, model, params, dev, kernels,
         reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=int(g))
                 for i, (p, g) in enumerate(zip(prompts, gens))]
         before = {k: LAUNCHES[k] for k in kernels}
-        res = eng.serve(reqs)
+        with scan_shape_counts() as counts:
+            res = eng.serve(reqs)
+        for key, n in counts.items():
+            shape_counts[key] = shape_counts.get(key, 0) + n
         if dev.type == "cuda":
             torch.cuda.synchronize()
         launched = {k: LAUNCHES[k] - before[k] for k in kernels}
@@ -1116,9 +1247,10 @@ def recurrent_serve_phase(torch, model, params, dev, kernels,
     return {k: LAUNCHES[k] for k in kernels}
 
 
-def recurrent_model_phase(torch, arch, kernels, dev) -> dict:
+def recurrent_model_phase(torch, arch, kernels, dev, shape_counts) -> dict:
     """Full-width f32 parity, then the bf16 serves, of one recurrent
-    model; returns its kernels' launch counts from the serves."""
+    model; returns its kernels' launch counts from the serves (and adds
+    their calls by shape to ``shape_counts``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import layers as L
     from repro_torch.models.model import build
@@ -1133,7 +1265,8 @@ def recurrent_model_phase(torch, arch, kernels, dev) -> dict:
     recurrent_parity_phase(torch, model, params, dev)
     params = L.tree_map(lambda t: t.to(torch.bfloat16), params)
     torch.cuda.empty_cache()
-    launches = recurrent_serve_phase(torch, model, params, dev, kernels)
+    launches = recurrent_serve_phase(torch, model, params, dev, kernels,
+                                     shape_counts)
     del params
     torch.cuda.empty_cache()
     return launches
@@ -1250,11 +1383,16 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
+    shape_counts: dict = {}
     for arch, kernels in (("rwkv6-3b", ("wkv_fused", "wkv_chunk")),
                           ("zamba2-2.7b", ("ssd_fused", "ssd_chunk"))):
-        launches = recurrent_model_phase(torch, arch, kernels, dev)
+        launches = recurrent_model_phase(torch, arch, kernels, dev,
+                                         shape_counts)
         for k in kernels:
             scan_records[k]["launches"] = launches[k]
+            check(sum(n for key, n in shape_counts.items() if key[0] == k)
+                  == launches[k], f"{k}: calls by shape != launches")
+    serve_shape_phase(torch, shape_counts, scan_records)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

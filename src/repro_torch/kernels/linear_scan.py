@@ -8,8 +8,12 @@ Two modes of each recurrence:
   block per (batch row, head) holding the state in registers for the whole
   sequence (decode, speculative verify, ragged prefill);
 * ``wkv_chunk`` / ``ssd_chunk`` — the same recurrence reassociated into
-  matmul form per ``chunk`` steps, the state in shared memory and carried
-  from chunk to chunk (aligned prefill, chunk-mode verify).
+  matmul form per ``chunk`` steps, as a chunk-parallel scan: a kernel for
+  every chunk's state contribution, a state pass that carries the state
+  from chunk to chunk, and a kernel for the outputs of every chunk and
+  64-step query tile (aligned prefill, chunk-mode verify).  A call that
+  fits one chunk skips the state pass, and one that fits one tile is one
+  kernel (:func:`kernels_per_call`).
 
 Kernel layout, all float32 and contiguous: WKV r, k, v, w ``(B, H, T, N)``,
 u ``(H, N)``, state ``(B, H, N, N)``; SSD x ``(B, H, T, P)``, b, c
@@ -47,9 +51,9 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         sigs = {
             "wkv_fused_launch": [ptr] * 8 + [i32] * 4 + [ptr],
-            "wkv_chunk_launch": [ptr] * 9 + [i32] * 5 + [ptr],
+            "wkv_chunk_launch": [ptr] * 10 + [i32] * 5 + [ptr],
             "ssd_fused_launch": [ptr] * 8 + [i32] * 5 + [ptr],
-            "ssd_chunk_launch": [ptr] * 9 + [i32] * 6 + [ptr],
+            "ssd_chunk_launch": [ptr] * 10 + [i32] * 6 + [ptr],
         }
         for fn, args in sigs.items():
             getattr(lib, fn).argtypes = args
@@ -109,6 +113,43 @@ def _check_chunk(chunk: int) -> None:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
 
+#: time steps of the chunk kernels' tiles
+TILE = 64
+
+
+def kernels_per_call(T: int, chunk: int) -> int:
+    """CUDA kernels one call launches: 1 for the fused recurrence (chunk
+    0).  The chunked scan: 3 when the call is more than one chunk (chunk
+    states, the state pass, outputs), 2 when it is one chunk of more than
+    one 64-step tile, and 1 when it is one tile (the output kernel then
+    writes the final state too)."""
+    if chunk == 0:
+        return 1
+    if -(-T // chunk) > 1:
+        return 3
+    return 2 if T > TILE else 1
+
+
+def _chunk_workspace(dev: torch.device, B: int, H: int, T: int,
+                     chunk: int, state: int, decay: int):
+    """The chunked scan's f32 workspace, (B, H, chunks, state) for each
+    chunk's state contribution (overwritten by its entry state) and
+    (B, H, chunks, decay) for its decay; none for a single chunk.  The
+    kernel allocates nothing: the tensors come from the caching allocator
+    and may be dropped once the call is enqueued (stream order)."""
+    nc = -(-T // chunk)
+    if nc <= 1:
+        return None, None
+    ws = torch.empty((B, H, nc, state), dtype=torch.float32, device=dev)
+    dec = torch.empty((B, H, nc, decay), dtype=torch.float32, device=dev)
+    return ws, dec
+
+
+def _ptr(t) -> int | None:
+    """A tensor's data pointer, or NULL for none."""
+    return None if t is None else t.data_ptr()
+
+
 def wkv(r, k, v, w, u, s0, *, chunk: int = 0):
     """RWKV6 WKV on the card: the fused recurrence when ``chunk`` is 0,
     else the chunked scan with ``chunk``-step chunks.  Returns
@@ -125,9 +166,12 @@ def wkv(r, k, v, w, u, s0, *, chunk: int = 0):
     ptrs = [t.data_ptr() for t in (r, k, v, w, u, s0, out, s_out)]
     if chunk:
         _check_chunk(chunk)
-        scratch = torch.empty_like(r)   # per-chunk log-decay cumsums
+        if T == 0:
+            s_out.copy_(s0)
+            return out, s_out
+        ws, dec = _chunk_workspace(dev, B, H, T, chunk, N * N, N)
         _launch("wkv_chunk", "wkv_chunk_launch", dev, *ptrs,
-                scratch.data_ptr(), B, H, T, N, chunk)
+                _ptr(ws), _ptr(dec), B, H, T, N, chunk)
     else:
         _launch("wkv_fused", "wkv_fused_launch", dev, *ptrs, B, H, T, N)
     return out, s_out
@@ -151,9 +195,12 @@ def ssd(x, b, c, dt, a, s0, *, chunk: int = 0):
     ptrs = [t.data_ptr() for t in (x, b, c, dt, a, s0, y, s_out)]
     if chunk:
         _check_chunk(chunk)
-        scratch = torch.empty_like(dt)  # per-chunk log-decay cumsums
+        if T == 0:
+            s_out.copy_(s0)
+            return y, s_out
+        ws, dec = _chunk_workspace(dev, B, H, T, chunk, P * N, 1)
         _launch("ssd_chunk", "ssd_chunk_launch", dev, *ptrs,
-                scratch.data_ptr(), B, H, T, P, N, chunk)
+                _ptr(ws), _ptr(dec), B, H, T, P, N, chunk)
     else:
         _launch("ssd_fused", "ssd_fused_launch", dev, *ptrs, B, H, T, P, N)
     return y, s_out

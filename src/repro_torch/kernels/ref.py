@@ -153,6 +153,11 @@ def wkv_chunk(r, k, v, w, u, s0, chunk: int = 64):
     state r_t reads excludes kv_t, so the intra-chunk term is strictly
     causal and the ``u`` bonus supplies the diagonal.  Masked exponents
     are set to -inf before ``exp``; every one that survives is <= 0.
+    The log-decays, their cumsums and the exponents are float64 (the
+    exponentials are rounded to f32 before the products): a decay
+    exponent is a difference of two cumsums, and in f32 that difference
+    loses about |L| ulp, which at long chunks or extreme decays exceeds
+    :data:`KERNEL_TOL` against the sequential recurrence.
     """
     B, T, H, N = r.shape
     uf = u.float()
@@ -161,26 +166,28 @@ def wkv_chunk(r, k, v, w, u, s0, chunk: int = 64):
     for lo in range(0, T, chunk):
         C = min(chunk, T - lo)
         rc, kc, vc, wc = (t[:, lo:lo + C].float() for t in (r, k, v, w))
-        lw = torch.log(wc)                                    # (B,C,H,N)
+        lw = torch.log(wc.double())                           # (B,C,H,N)
         linc = torch.cumsum(lw, dim=1)          # decay through step t
         lexc = linc - lw                        # decay through step t-1
         # cross-chunk: r_t reads the entry state decayed by w_0..w_{t-1}
-        out = torch.einsum("bthj,bhji->bthi", rc * torch.exp(lexc), s)
+        out = torch.einsum("bthj,bhji->bthi",
+                           rc * torch.exp(lexc).float(), s)
         # intra-chunk (strictly causal): kv_s decays by w_{s+1}..w_{t-1}
         tidx = torch.arange(C, device=r.device)
         causal = tidx[:, None] > tidx[None, :]
         expnt = lexc[:, :, None] - linc[:, None]              # (B,C,C,H,N)
         expnt = expnt.masked_fill(~causal[None, :, :, None, None],
                                   float("-inf"))
-        att = torch.einsum("bthj,btshj,bshj->bths", rc, torch.exp(expnt), kc)
+        att = torch.einsum("bthj,btshj,bshj->bths", rc,
+                           torch.exp(expnt).float(), kc)
         out = out + torch.einsum("bths,bshi->bthi", att, vc)
         # diagonal bonus: out_t also reads u * kv_t
         dcoef = torch.einsum("bthj,hj->bth", rc * kc, uf)
         out = out + dcoef[..., None] * vc
         # carry: S <- exp(L_C) S + sum_s exp(L_C - L_s) k_s v_s^T
         wlast = linc[:, -1]                                   # (B,H,N)
-        kw = kc * torch.exp(wlast[:, None] - linc)
-        s = (torch.exp(wlast)[..., :, None] * s
+        kw = kc * torch.exp(wlast[:, None] - linc).float()
+        s = (torch.exp(wlast).float()[..., :, None] * s
              + torch.einsum("bthj,bthi->bhji", kw, vc))
         outs.append(out)
     return torch.cat(outs, dim=1), s
@@ -191,30 +198,241 @@ def ssd_chunk(x, b, c, dt, a, s0, chunk: int = 64):
     in matmul form per ``chunk`` steps (a shorter last chunk when
     ``chunk`` does not divide T), all streams f32.  The output is read
     after the state update, so the intra-chunk mask includes the
-    diagonal (s <= t)."""
+    diagonal (s <= t).  The log-decays dt a, their cumsums and the
+    exponents are float64, as in :func:`wkv_chunk`."""
     B, T, H, P = x.shape
     s = s0.float()
-    af = a.float()
+    af = a.double()
     ys = []
     for lo in range(0, T, chunk):
         C = min(chunk, T - lo)
         xc, bc, cc, dtc = (t[:, lo:lo + C].float() for t in (x, b, c, dt))
-        la = dtc * af[None, None, :]                          # (B,C,H)
+        la = dtc.double() * af[None, None, :]                 # (B,C,H)
         linc = torch.cumsum(la, dim=1)
         # cross-chunk: y_t reads the entry state decayed through step t
-        y = torch.exp(linc)[..., None] * torch.einsum("bhpn,btn->bthp", s, cc)
+        y = (torch.exp(linc).float()[..., None]
+             * torch.einsum("bhpn,btn->bthp", s, cc))
         # intra-chunk (inclusive): upd_s decays by la_{s+1}..la_t
         tidx = torch.arange(C, device=x.device)
         mask = tidx[:, None] >= tidx[None, :]
         cb = torch.einsum("btn,bsn->bts", cc, bc)
         expnt = linc[:, :, None] - linc[:, None]              # (B,C,C,H)
         expnt = expnt.masked_fill(~mask[None, :, :, None], float("-inf"))
-        M = cb[..., None] * torch.exp(expnt) * dtc[:, None]
+        M = cb[..., None] * torch.exp(expnt).float() * dtc[:, None]
         y = y + torch.einsum("btsh,bshp->bthp", M, xc)
         # carry: S <- exp(L_C) S + sum_s exp(L_C - L_s) dt_s x_s (x) b_s
         wlast = linc[:, -1]                                   # (B,H)
-        wgt = torch.exp(wlast[:, None] - linc) * dtc          # (B,C,H)
-        s = (torch.exp(wlast)[..., None, None] * s
+        wgt = torch.exp(wlast[:, None] - linc).float() * dtc  # (B,C,H)
+        s = (torch.exp(wlast).float()[..., None, None] * s
              + torch.einsum("bthp,btn,bth->bhpn", xc, bc, wgt))
         ys.append(y)
     return torch.cat(ys, dim=1), s
+
+
+# ---------------------------------------------------------------------------
+# The chunk kernels' algorithm, step for step, in plain PyTorch (used by the
+# tests only: it shows on the CPU that the kernels' decomposition computes
+# wkv_chunk / ssd_chunk, ragged chunks and extreme decays included)
+# ---------------------------------------------------------------------------
+
+#: time steps of a kernel tile, and of a WKV sub-tile
+SCAN_TILE, SCAN_SUB = 64, 16
+
+
+def _suffix_excl(x, dim: int = 1):
+    """Exclusive suffix sums along ``dim``: out[s] = sum of x[s+1:]."""
+    return torch.flip(torch.cumsum(torch.flip(x, [dim]), dim), [dim]) - x
+
+
+def _tiles(lo: int, C: int):
+    """(start, rows) of each SCAN_TILE-step tile of the chunk [lo, lo+C)."""
+    return [(lo + t0, min(SCAN_TILE, C - t0))
+            for t0 in range(0, C, SCAN_TILE)]
+
+
+def _pad_rows(x, n: int, fill: float = 0.0):
+    """Pad dim 1 of x (n rows) to SCAN_TILE rows with ``fill`` (a kernel
+    tile's padding)."""
+    if n == SCAN_TILE:
+        return x
+    shape = list(x.shape)
+    shape[1] = SCAN_TILE - n
+    return torch.cat([x, x.new_full(shape, fill)], dim=1)
+
+
+def _state_pass(s0, dS, decay):
+    """Phase B: the entry state of every chunk and the final state,
+    S_{c+1} = decay_c * S_c + dS_c, serially over chunks."""
+    S, entries = s0, []
+    for d, g in zip(dS, decay):
+        entries.append(S)
+        S = g * S + d
+    return entries, S
+
+
+def _sub_products(w):
+    """Per 16-step sub-tile of a (B, 64, H, N) tile of decays: the
+    exclusive prefix products from the sub-tile's start, the exclusive
+    suffix products to its end, and the sub-tile's total product
+    (B, 4, H, N), each a product of at most 16 decays."""
+    ws = w.unflatten(1, (SCAN_TILE // SCAN_SUB, SCAN_SUB))
+    incl = torch.cumprod(ws, 2)
+    pre = torch.cat([torch.ones_like(ws[:, :, :1]), incl[:, :, :-1]], 2)
+    suf = torch.flip(torch.cumprod(torch.flip(ws, [2]), 2), [2])
+    suf = torch.cat([suf[:, :, 1:], torch.ones_like(ws[:, :, :1])], 2)
+    return pre.flatten(1, 2), suf.flatten(1, 2), incl[:, :, -1]
+
+
+def _tile_suffix(w):
+    """Exclusive suffix products over a (B, 64, H, N) tile of decays, as
+    sub-tile suffix products times the totals of the later sub-tiles;
+    and the tile's total product."""
+    _, suf, tot = _sub_products(w)
+    n = tot.shape[1]
+    later = [torch.prod(tot[:, c + 1:], 1) for c in range(n)]
+    later = torch.stack(later, 1).repeat_interleave(SCAN_SUB, 1)
+    return suf * later, torch.prod(tot, 1)
+
+
+def wkv_chunk_phased(r, k, v, w, u, s0, chunk: int = 64):
+    """The CUDA ``wkv_chunk`` kernels' decomposition of :func:`wkv_chunk`
+    (model layout in and out, f32).  Every decay factor is a product of
+    decays, never an exponential of a difference of cumsums, so nothing
+    cancels and nothing overflows (every factor is <= 1); tiles are
+    zero-padded to 64 steps with decay 1.
+
+    * A, per chunk: walking its 64-step tiles from the last, with the
+      decays of the later tiles multiplied into ``carry``,
+      dS = sum_t (k_t prod_{m>t} w_m) v_t^T and the decay prod_t w_t;
+    * B: the entry state of every chunk;
+    * C, per 64-step query tile: keys of earlier tiles of the chunk by
+      one product, (r_t prod_{q0<=m<t} w_m) . (k_s prod_{s<m<q0} w_m);
+      keys of its own tile by 16-step sub-tiles, an earlier sub-tile b
+      through three factors (r_t's prefix product in its sub-tile a, the
+      totals of the sub-tiles between, k_s's suffix product in b), its
+      own sub-tile by running products over t for each key s; then the
+      u bonus and the cross term (r_t prod_{m<t} w_m) S.
+    """
+    B, T, H, N = r.shape
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    uf = u.float()
+    chunks = [(lo, min(chunk, T - lo)) for lo in range(0, T, chunk)]
+
+    def tile(t, t0, n, fill=0.0):
+        return _pad_rows(t[:, t0:t0 + n], n, fill)
+
+    dS, decay = [], []
+    for lo, C in chunks:                                      # phase A
+        acc = r.new_zeros((B, H, N, N))
+        carry = r.new_ones((B, H, N))
+        for t0, n in reversed(_tiles(lo, C)):
+            suf, tot = _tile_suffix(tile(w, t0, n, 1.0))
+            kd = tile(k, t0, n) * suf * carry[:, None]
+            acc = acc + torch.einsum("bthj,bthi->bhji", kd, tile(v, t0, n))
+            carry = carry * tot
+        dS.append(acc)
+        decay.append(carry[..., None])
+    entries, s_final = _state_pass(s0.float(), dS, decay)     # phase B
+    outs = []
+    nsub = SCAN_TILE // SCAN_SUB
+    for (lo, C), S in zip(chunks, entries):                   # phase C
+        tiles = _tiles(lo, C)
+        for qi, (q0, nq) in enumerate(tiles):
+            rq, kq, vq = (tile(t, q0, nq) for t in (r, k, v))
+            wq = tile(w, q0, nq, 1.0)
+            pre, suf, tot = _sub_products(wq)
+            before = [torch.prod(tot[:, :a], 1) for a in range(nsub)]
+            rqf = rq * pre * torch.stack(before, 1).repeat_interleave(
+                SCAN_SUB, 1)                   # r_t prod_{q0<=m<t} w_m
+            rd, kd = rq * pre, kq * suf
+            A = r.new_zeros((B, H, SCAN_TILE, SCAN_TILE))
+            for a in range(nsub):
+                ta = slice(a * SCAN_SUB, (a + 1) * SCAN_SUB)
+                for b in range(a):
+                    sb = slice(b * SCAN_SUB, (b + 1) * SCAN_SUB)
+                    D = torch.prod(tot[:, b + 1:a], 1)        # (B,H,N)
+                    A[:, :, ta, sb] = torch.einsum(
+                        "bthj,bhj,bshj->bhts", rd[:, ta], D, kd[:, sb])
+                # own sub-tile: run[s] = prod_{s<m<t} w_m, over t
+                P = r.new_zeros((B, SCAN_SUB, SCAN_SUB, H, N))
+                run = r.new_ones((B, SCAN_SUB, H, N))
+                for t in range(SCAN_SUB):
+                    P[:, t, :t] = run[:, :t]
+                    run[:, :t] = run[:, :t] * wq[:, a * SCAN_SUB + t, None]
+                A[:, :, ta, ta] = torch.einsum(
+                    "bthj,btshj,bshj->bhts", rq[:, ta], P, kq[:, ta])
+            out = torch.einsum("bhts,bshi->bthi", A, vq)
+            out = out + torch.einsum("bthj,hj,bthj->bth", rq, uf,
+                                     kq)[..., None] * vq
+            carry = r.new_ones((B, H, N))
+            for t0, n in reversed(tiles[:qi]):
+                ksuf, ktot = _tile_suffix(w[:, t0:t0 + n])
+                kf = k[:, t0:t0 + n] * ksuf * carry[:, None]
+                At = torch.einsum("bthj,bshj->bhts", rqf, kf)
+                out = out + torch.einsum("bhts,bshi->bthi", At,
+                                         v[:, t0:t0 + n])
+                carry = carry * ktot
+            out = out + torch.einsum("bthj,bhji->bthi",
+                                     rqf * carry[:, None], S)
+            outs.append(out[:, :nq])
+    return torch.cat(outs, dim=1), s_final
+
+
+def ssd_chunk_phased(x, b, c, dt, a, s0, chunk: int = 64):
+    """The CUDA ``ssd_chunk`` kernels' decomposition of :func:`ssd_chunk`
+    (model layout in and out, f32 streams; the scalar log-decays dt a are
+    summed in float64, whose exponentials are rounded to f32): A, per
+    chunk, walking its 64-step
+    tiles from the last, dS = sum_t exp(L_C - L_t) dt_t x_t b_t^T and
+    exp(L_C); B, the entry states; C, per 64-step query tile, G = c b^T
+    once per tile pair for every head, M = G exp(L_t - L_s) dt_s (its own
+    tile directly, s <= t; earlier tiles as exp(L_t - L_ref) times
+    exp(L_ref - L_s) dt_s, L_ref the tile's start), y += M x, then the
+    cross term exp(L_t) (c_t . S)."""
+    B, T, H, P = x.shape
+    x, b, c, dt = (t.float() for t in (x, b, c, dt))
+    la = dt.double() * a.double()                             # (B,T,H)
+    chunks = [(lo, min(chunk, T - lo)) for lo in range(0, T, chunk)]
+    dS, decay = [], []
+    for lo, C in chunks:                                      # phase A
+        acc = x.new_zeros((B, H, P, b.shape[-1]))
+        carry = la.new_zeros((B, H))
+        for t0, n in reversed(_tiles(lo, C)):
+            sl = slice(t0, t0 + n)
+            wgt = torch.exp(_suffix_excl(la[:, sl])
+                            + carry[:, None]).float() * dt[:, sl]
+            acc = acc + torch.einsum("bthp,btn,bth->bhpn", x[:, sl],
+                                     b[:, sl], wgt)
+            carry = carry + la[:, sl].sum(1)
+        dS.append(acc)
+        decay.append(torch.exp(carry).float()[..., None, None])
+    entries, s_final = _state_pass(s0.float(), dS, decay)     # phase B
+    ys = []
+    incl = torch.tril(torch.ones(SCAN_TILE, SCAN_TILE, dtype=torch.bool,
+                                 device=x.device))
+    for (lo, C), S in zip(chunks, entries):                   # phase C
+        tiles = _tiles(lo, C)
+        for qi, (q0, nq) in enumerate(tiles):
+            cq, xq, dq, lq = (_pad_rows(t[:, q0:q0 + nq], nq)
+                              for t in (c, x, dt, la))
+            bq = _pad_rows(b[:, q0:q0 + nq], nq)
+            Lq = torch.cumsum(lq, 1)                          # (B,t,H)
+            G = torch.einsum("btn,bsn->bts", cq, bq)
+            ex = (Lq[:, :, None] - Lq[:, None]).masked_fill(
+                ~incl[None, :, :, None], float("-inf"))
+            M = G[..., None] * torch.exp(ex).float() * dq[:, None]
+            y = torch.einsum("btsh,bshp->bthp", M, xq)
+            rowf = torch.exp(Lq).float()
+            carry = la.new_zeros((B, H))
+            for t0, n in reversed(tiles[:qi]):
+                sl = slice(t0, t0 + n)
+                colf = torch.exp(_suffix_excl(la[:, sl])
+                                 + carry[:, None]).float() * dt[:, sl]
+                G = torch.einsum("btn,bsn->bts", cq, b[:, sl])
+                M = G[..., None] * rowf[:, :, None] * colf[:, None]
+                y = y + torch.einsum("btsh,bshp->bthp", M, x[:, sl])
+                carry = carry + la[:, sl].sum(1)
+            cross = torch.einsum("btn,bhpn->bthp", cq, S)
+            y = y + torch.exp(carry[:, None] + Lq).float()[..., None] * cross
+            ys.append(y[:, :nq])
+    return torch.cat(ys, dim=1), s_final

@@ -184,6 +184,10 @@ def main(argv=None):
                     help="arrival rate, requests/s (poisson/staggered)")
     ap.add_argument("--slots", type=int, default=4,
                     help="KV pool width / static batch width")
+    ap.add_argument("--prefill-bucket", type=int, default=8,
+                    help="slot-pool prefill: pad prompts up to a multiple "
+                         "of this where right-padding is sound (dense "
+                         "caches; 0 = exact length)")
     ap.add_argument("--paged", choices=("auto", "on", "off"), default="auto",
                     help="paged KV pool (auto: wherever the family "
                          "supports it); off: the slot pool")
@@ -293,7 +297,8 @@ def main(argv=None):
     engine = Engine(model, params, plan=plan, device=args.device,
                     dtree=dtree, serve_cfg=ServeConfig(
         max_len=max_len, temperature=args.temperature, seed=args.seed,
-        max_slots=args.slots, eos_id=args.eos_id, paged=args.paged,
+        max_slots=args.slots, eos_id=args.eos_id,
+        prefill_bucket=args.prefill_bucket, paged=args.paged,
         scan_mode=args.scan_mode,
         page_size=args.page_size, kv_pages=args.kv_pages,
         prefill_chunk=args.prefill_chunk,
@@ -370,6 +375,15 @@ def main(argv=None):
               f"fallbacks={hs.get('fallbacks', 0)}")
     pool = engine._pool
     if engine._paged:
+        mesh_info = res.get("mesh", {})
+        if mesh_info:
+            print(f"[mesh] tp={mesh_info['tp']} "
+                  f"devices={mesh_info['devices']} "
+                  f"hbm_per_device="
+                  f"{mesh_info['hbm_bytes_per_device']/2**20:.1f} MiB "
+                  f"high_water_per_device="
+                  f"{mesh_info['high_water_bytes_per_device']/2**20:.1f} "
+                  f"MiB")
         print(f"[paged] attn={args.attn_impl} page_size={pool.page_size} "
               f"pages={pool.n_pages} pool={pool.hbm_bytes()/2**20:.1f} MiB "
               f"high-water={pool.high_water_bytes()/2**20:.1f} MiB "

@@ -454,6 +454,11 @@ class PagedKVPool:
         self.page_size = page_size
         self.n_pages = n_pages
         self.max_pages_per_slot = max_pages_per_slot
+        # tensor-parallel shard count of the pages (the kv-head dim, as in
+        # the JAX package).  Page, slot and watermark arithmetic is in page
+        # counts, which sharding leaves untouched; only the per_device_*
+        # byte views below divide by it.  The port serves at tp 1.
+        self.tp_shards = 1
         self.pages = tree_map(
             lambda shape: torch.zeros(shape, dtype=dtype, device=device),
             page_shapes)
@@ -785,6 +790,17 @@ class PagedKVPool:
     def high_water_bytes(self) -> int:
         """Peak bytes of *live* pages — the trace's real KV working set."""
         return self.page_bytes() * self.allocator.high_water
+
+    # per-device views: each of ``tp_shards`` devices holds 1/tp of every
+    # page's bytes
+    def per_device_page_bytes(self) -> int:
+        return self.page_bytes() // self.tp_shards
+
+    def per_device_hbm_bytes(self) -> int:
+        return self.hbm_bytes() // self.tp_shards
+
+    def per_device_high_water_bytes(self) -> int:
+        return self.high_water_bytes() // self.tp_shards
 
 
 # ---------------------------------------------------------------------------

@@ -89,6 +89,12 @@ class ServeConfig:
     # -- continuous batching -------------------------------------------------
     max_slots: int = 4          # max in-flight requests (pool width)
     eos_id: int = -1            # -1: no EOS (per-request eos_id overrides)
+    prefill_bucket: int = 0     # slot path: 0 = exact-length prefill; >0 =
+                                # pad the prompt up to a multiple of the
+                                # bucket where right-padding is sound (see
+                                # Engine._prefill_slot for what it costs)
+    autoplan: bool = True       # consult the dtree (when one is supplied)
+    autoplan_top_n: int = 2     # hot regions consulted per (re)selection
     # -- online autotuning (repro_torch.autotune: measure -> corpus -> train
     # -> decide) -------------------------------------------------------------
     online_retrain: bool = False   # tap step counters + tok/s rewards into a
@@ -158,10 +164,6 @@ def sample_rows(logits: torch.Tensor, gen: torch.Generator,
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
-
-
-#: hot regions the decision tree is consulted for per (re)selection
-AUTOPLAN_TOP_N = 2
 
 
 def load_bucket(n_active: int) -> int:
@@ -590,7 +592,8 @@ class Engine:
         built = self._build_step(self.plan)
         self._pool_step, self._spec_depth = built[0], built[1]
         self._pool_steps[self._step_cache_key(self.plan)] = built
-        if self.dtree is not None or self.cfg.online_retrain:
+        if ((self.dtree is not None and self.cfg.autoplan)
+                or self.cfg.online_retrain):
             from repro_torch.core import counters as counters_mod
             self._pool_rc = counters_mod.collect(
                 self._pool_step, *self._step_args(self._spec_depth))
@@ -653,21 +656,46 @@ class Engine:
                             device=self.device), splan)
         return cache
 
+    def _pad_safe(self) -> bool:
+        """Right-padding the prompt is sound only for positional full-KV
+        caches: pad K/V land at positions >= pos (masked, then overwritten
+        by decode writes).  Recurrent state (ssm/hybrid) and sliding-window
+        rings would absorb the pads."""
+        cfg = self.model.cfg
+        return cfg.family in ("dense", "moe", "vlm") and not cfg.swa_window
+
     def _prefill_slot(self, prompt: np.ndarray):
         """Fill a fresh single-request cache with prompt[:-1]; the last
         prompt token is returned to be fed through the pool decode step
         (which then yields the first generated token).  Recurrent families
-        prefill under the resolved prefill-phase scan mode."""
+        prefill under the resolved prefill-phase scan mode.
+
+        With ``ServeConfig.prefill_bucket`` set, a prompt is right-padded
+        up to a multiple of the bucket (capped at max_len) where
+        :meth:`_pad_safe`, and the cache's position is set back to the
+        true length, so the result is that of exact-length prefill.  The
+        JAX package pads to bound the number of compiled prefill shapes;
+        an eager step compiles nothing, so here the pads are only extra
+        work: up to ``prefill_bucket - 1`` thrown-away positions a prompt."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 2:
             return self._pool.empty_slot_cache(), int(prompt[-1])
+        feed = prompt[:-1]
+        true_len = feed.size
+        if self.cfg.prefill_bucket and self._pad_safe():
+            b = self.cfg.prefill_bucket
+            padded = min(-(-true_len // b) * b, self.cfg.max_len)
+            if padded > true_len:
+                feed = np.pad(feed, (0, padded - true_len))
         plan = self._plan_with_scan_mode(
             self.plan, self.scan_mode_for(self._decided_plan,
                                           phase="prefill"))
         _, cache = self.model.prefill(
-            self.params, {"tokens": torch.as_tensor(prompt[None, :-1],
+            self.params, {"tokens": torch.as_tensor(feed[None],
                                                     device=self.device)},
             plan, max_len=self.cfg.max_len)
+        cache = dict(cache)
+        cache["pos"] = torch.full_like(cache["pos"], true_len)
         return cache, int(prompt[-1])
 
     def _build_paged_step(self, plan: RegionPlan):
@@ -723,7 +751,7 @@ class Engine:
         load_frac = min(bucket, self._pool.n_slots) / self._pool.n_slots
         plan, decisions = self.decider.decide(
             self._pool_rc, self.plan, load_frac=load_frac,
-            top_n=AUTOPLAN_TOP_N)
+            top_n=self.cfg.autoplan_top_n)
         # reward attribution: the class actually in effect for the tap region
         tap_prefix = (canonical(self._tap_region) if self._tap_region
                       else None)
@@ -955,7 +983,8 @@ class Engine:
                       ) -> dict:
         """The per-subsystem ``summary()`` dicts behind one aggregate:
         autotune, health, faults, memory (the governor's on the paged pool, slot
-        bytes and occupancy high-water on the slot pool) and — when
+        bytes and occupancy high-water on the slot pool), the paged pool's
+        mesh placement (``mesh``) and — when
         ``requests`` is passed — the scheduler's trace stats and failure
         rollup."""
         obs: dict = {
@@ -965,7 +994,20 @@ class Engine:
                        else {"enabled": False, "injected_total": 0}),
         }
         if self._paged and self.governor is not None:
+            pool = self._pool
             obs["memory"] = self.governor.summary()
+            # mesh placement, as the JAX package reports it: page bytes
+            # are per device (pages shard on kv_heads, so each device holds
+            # 1/tp of every page); page and watermark counts are
+            # tp-invariant.  The port serves at tp 1.
+            obs["mesh"] = {
+                "tp": pool.tp_shards,
+                "devices": self._n_devices(),
+                "page_bytes_per_device": pool.per_device_page_bytes(),
+                "hbm_bytes_per_device": pool.per_device_hbm_bytes(),
+                "high_water_bytes_per_device":
+                    pool.per_device_high_water_bytes(),
+            }
         elif self._pool is not None:
             pool = self._pool
             obs["memory"] = {"pool": "slot",

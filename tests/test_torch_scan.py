@@ -201,14 +201,79 @@ def test_unknown_mode_and_cpu_tensors_raise_and_count_nothing():
         "liblinear_scan_")
 
 
+# -- the chunk kernels' decomposition, mirrored in plain PyTorch ------------
+
+_PHASED = {"wkv": (ref.wkv_chunk_phased, ref.wkv_chunk, jops.wkv),
+           "ssd": (ref.ssd_chunk_phased, ref.ssd_chunk, jops.ssd)}
+
+
+@pytest.mark.parametrize("kind", ["wkv", "ssd"])
+@pytest.mark.parametrize("C", [3, 16, 64, 256, 512])
+@pytest.mark.parametrize("T", [1, 3, 64, 100, 300, 512])
+def test_phased_mirror_matches_plain_and_pallas(kind, T, C):
+    """``ref.wkv_chunk_phased`` / ``ssd_chunk_phased`` (the CUDA chunk
+    kernels' three phases, 64-step tiles and 16-step sub-tiles, in plain
+    PyTorch) against the plain chunked forms at every (T, C), a shorter
+    last chunk wherever C does not divide T, and against the JAX
+    package's Pallas kernels in interpret mode where their time tile
+    (min(C, 64), which must divide T) allows."""
+    arrs = _inputs(kind, 7 * T + C, T)
+    mirror, plain, jfn = _PHASED[kind]
+    got = mirror(*_t(arrs), C)
+    _close(got, plain(*_t(arrs), C))
+    bt = min(C, 64)
+    if T % bt == 0:
+        _close(got, jfn(*_j(arrs), bt=bt, mode="chunk"))
+
+
+@pytest.mark.parametrize("T,C", [(64, 64), (100, 16), (300, 256),
+                                 (512, 512)])
+def test_phased_wkv_extreme_decays_stay_finite(T, C):
+    """Decays down to w = 1e-30 (log w = -69: a 16-step sub-tile spans
+    e^-1100): the factorised off-diagonal products are products of
+    factors <= 1 on both sides, so nothing overflows and no inf * 0 makes
+    a NaN; the mirror agrees with the plain chunked form (exponents
+    summed in float64) and with the sequential recurrence."""
+    r, k, v, w, u, s0 = _t(_wkv_np(T, 2, T, 3, 8))
+    g = torch.Generator().manual_seed(T)
+    tiny = torch.rand(w.shape, generator=g) < 0.5
+    w = torch.where(tiny, torch.full_like(w, 1e-30),
+                    torch.rand(w.shape, generator=g) * 0.5 + 0.5)
+    got = ref.wkv_chunk_phased(r, k, v, w, u, s0, C)
+    for g_ in got:
+        assert torch.isfinite(g_).all()
+    _close(got, ref.wkv_chunk(r, k, v, w, u, s0, C))
+    _close(got, ref.wkv_linear_scan(r, k, v, w, u, s0))
+
+
+@pytest.mark.parametrize("T,chunk,want", [
+    (1, 0, 1), (300, 0, 1), (3, 3, 1), (64, 64, 1), (64, 512, 1),
+    (65, 256, 2), (100, 256, 2), (512, 512, 2), (512, 64, 3),
+    (513, 512, 3), (4, 3, 3)])
+def test_kernels_per_call(T, chunk, want):
+    """CUDA kernels one wrapper call launches: the fused recurrence one;
+    the chunked scan its chunk-state, state-pass and output kernels for
+    several chunks, no state pass for one chunk, and only the output
+    kernel (which then writes the final state) for one 64-step tile."""
+    assert tls.kernels_per_call(T, chunk) == want
+
+
 # -- the CUDA kernels against their plain versions (skip without a card) ----
 
 _GPU_CASES = {
     "wkv_fused": [(8, 1, 0), (8, 3, 0), (1, 300, 0)],
-    "wkv_chunk": [(8, 3, 3), (1, 512, 64), (1, 300, 64)],
+    "wkv_chunk": [(8, 3, 3), (1, 512, 64), (1, 300, 64), (1, 512, 256),
+                  (1, 64, 64), (1, 513, 64)],
     "ssd_fused": [(8, 1, 0), (8, 3, 0), (1, 300, 0)],
-    "ssd_chunk": [(8, 3, 3), (1, 512, 64), (1, 512, 256), (1, 300, 64)],
+    "ssd_chunk": [(8, 3, 3), (1, 512, 64), (1, 512, 256), (1, 300, 64),
+                  (1, 64, 64), (1, 513, 64)],
 }
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 @pytest.mark.gpu
@@ -219,9 +284,7 @@ def test_cuda_scan_kernel_matches_plain_version(name):
     P = N = 64), decode / verify / aligned and ragged prefill shapes:
     output and final state within ``ref.KERNEL_TOL`` in f32, one launch
     counted per call."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    _needs_card()
     before = LAUNCHES[name]
     for B, T, chunk in _GPU_CASES[name]:
         if name.startswith("wkv"):
@@ -243,3 +306,66 @@ def test_cuda_scan_kernel_matches_plain_version(name):
             assert g.shape == w.shape and torch.isfinite(g).all()
             assert ref.within_tol(g, w, torch.float32), (name, B, T, chunk)
     assert LAUNCHES[name] == before + len(_GPU_CASES[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C", [(512, 64), (300, 256)])
+def test_cuda_wkv_chunk_extreme_decays(T, C):
+    """The WKV chunk kernel at rwkv6-3b's widths with half the decays at
+    w = 1e-30: finite, and within ``ref.KERNEL_TOL`` of the plain chunked
+    form (exponents in float64) and of the sequential recurrence."""
+    _needs_card()
+    r, k, v, w, u, s0 = (torch.from_numpy(a).cuda()
+                         for a in _wkv_np(T + C, 1, T, 40, 64))
+    g = torch.Generator(device="cuda").manual_seed(T)
+    w = torch.where(torch.rand(w.shape, generator=g, device="cuda") < 0.5,
+                    torch.full_like(w, 1e-30), w)
+    got = ops.wkv(r, k, v, w, u, s0, mode="chunk", chunk=C)
+    for want in (ref.wkv_chunk(r, k, v, w, u, s0, C),
+                 ref.wkv_linear_scan(r, k, v, w, u, s0)):
+        for g_, w_ in zip(got, want):
+            assert torch.isfinite(g_).all()
+            assert ref.within_tol(g_, w_, torch.float32), (T, C)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,B,T,C", [("wkv", 1, 512, 64), ("wkv", 8, 3, 3),
+                                        ("wkv", 8, 1, 0), ("wkv", 1, 100, 256),
+                                        ("ssd", 1, 512, 64), ("ssd", 8, 3, 3),
+                                        ("ssd", 1, 300, 512)])
+def test_cuda_scan_kernels_per_call(kind, B, T, C):
+    """One wrapper call launches ``kernels_per_call(T, chunk)`` CUDA
+    kernels (torch.profiler over 10 calls), counts one launch, and
+    synchronises with nothing (a call under sync debug mode 'error')."""
+    from torch.profiler import ProfilerActivity, profile
+    _needs_card()
+    if kind == "wkv":
+        arrs = [torch.from_numpy(a).cuda() for a in _wkv_np(0, B, T, 40, 64)]
+        kern = [t.transpose(1, 2).contiguous() if i < 4 else t
+                for i, t in enumerate(arrs)]
+        call = lambda: tls.wkv(*kern, chunk=C)  # noqa: E731
+    else:
+        arrs = [torch.from_numpy(a).cuda()
+                for a in _ssd_np(0, B, T, 80, 64, 64)]
+        kern = [arrs[0].transpose(1, 2).contiguous(), *arrs[1:3],
+                arrs[3].transpose(1, 2).contiguous(), *arrs[4:]]
+        call = lambda: tls.ssd(*kern, chunk=C)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    name = f"{kind}_{'chunk' if C else 'fused'}"
+    before = LAUNCHES[name]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert round(len(names) / 10) == tls.kernels_per_call(T, C), (
+        len(names), sorted(set(n[:50] for n in names)))
+    assert LAUNCHES[name] == before + 10
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

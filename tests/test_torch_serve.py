@@ -256,3 +256,73 @@ def test_trace_matches_jax_and_draws_prompt_lengths(arrival):
     lens = [len(r.prompt) for r in ranged]
     assert all(64 <= n <= 512 for n in lens) and len(set(lens)) > 1
     assert [r.arrival_s for r in ranged] == [r.arrival_s for r in want]
+
+
+def test_serve_config_fields_match_jax():
+    """The port's ServeConfig has exactly the JAX package's fields, in the
+    same order and with the same defaults, so a reference caller's
+    keyword arguments mean the same thing in both."""
+    import dataclasses
+    jf = [(f.name, f.default) for f in dataclasses.fields(JServeConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(ServeConfig)]
+    assert tf == jf
+    assert (ServeConfig().prefill_bucket, ServeConfig().autoplan,
+            ServeConfig().autoplan_top_n) == (0, True, 2)
+
+
+def test_paged_result_mesh_matches_jax(models):
+    """The paged serve's result carries the reference's ``mesh`` entry:
+    tp 1, one device here, and the pool's page, HBM and high-water bytes
+    per device, equal to the JAX engine's."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 256, n) for n in (6, 13, 9)]
+    jres, tres, teng = _serve_both(models, prompts, [5, 7, 6], max_len=32,
+                                   max_slots=2, page_size=8)
+    assert tres["mesh"] == jres["mesh"]
+    pool = teng._pool
+    assert tres["mesh"] == {
+        "tp": 1, "devices": 1,
+        "page_bytes_per_device": pool.page_bytes(),
+        "hbm_bytes_per_device": pool.hbm_bytes(),
+        "high_water_bytes_per_device": pool.high_water_bytes()}
+    assert tres["mesh"]["high_water_bytes_per_device"] > 0
+
+
+class _ConstTree:
+    """A decision tree that votes one class everywhere."""
+    def __init__(self, cls):
+        self.cls = cls
+
+    def predict_one(self, x):
+        return self.cls
+
+
+@pytest.mark.parametrize("autoplan,top_n", [(False, 2), (True, 8)])
+def test_autoplan_fields_match_jax(models, autoplan, top_n):
+    """``autoplan=False``: a supplied tree is never consulted (no
+    decisions, the base plan's spec depth 0); ``autoplan_top_n=8``: the
+    tree is consulted for the eight hottest regions, not two.  Decisions,
+    steps, speculation and greedy tokens equal the JAX engine's."""
+    jmodel, jparams, model, tparams = models
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, n) for n in (6, 9, 7, 11)]
+    jreqs, treqs = _traces(prompts, [8, 6, 9, 7])
+    cfg = dict(max_len=32, max_slots=2, page_size=8, spec_depth=-1,
+               autoplan=autoplan, autoplan_top_n=top_n)
+    jres = JEngine(jmodel, jparams, serve_cfg=JServeConfig(**cfg),
+                   dtree=_ConstTree("spec2")).serve(jreqs)
+    teng = Engine(model, tparams, serve_cfg=ServeConfig(**cfg),
+                  dtree=_ConstTree("spec2"), device="cpu")
+    tres = teng.serve(treqs)
+    for a, b in zip(jreqs, treqs):
+        assert b.state is RequestState.DONE, (b.rid, b.state, b.error)
+        assert b.out_tokens == a.out_tokens, f"req {b.rid} diverged"
+    assert tres["decisions"] == jres["decisions"]
+    assert (tres["steps"], tres["spec"]) == (jres["steps"], jres["spec"])
+    if autoplan:
+        assert tres["decisions"]
+        assert max(len(d) for _, d in tres["decisions"]) > 2
+        assert tres["spec"]["max_depth"] == 2
+    else:
+        assert tres["decisions"] == [] and teng._pool_rc is None
+        assert tres["spec"]["max_depth"] == 0

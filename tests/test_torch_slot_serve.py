@@ -145,3 +145,37 @@ def test_generate_matches_jax(arch):
     assert got["tokens"].shape == (3, 6)
     np.testing.assert_array_equal(got["tokens"].numpy(), np.asarray(want))
     assert got["decode_tok_per_s"] > 0
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "zamba2-2.7b"])
+def test_prefill_bucket_matches_jax(arch):
+    """``prefill_bucket=8`` on the slot pool, as the reference's callers
+    set it: a dense cache prefills prompts padded up to a multiple of 8
+    and then reads only the true length, a recurrent one (where padding
+    is not sound) at exact length.  Tokens, steps and slot memory equal
+    the JAX engine's, and equal an exact-length serve's."""
+    models = _models(arch)
+    prompts, gens = _prompts(6, (5, 12, 7, 17)), (6, 8, 5, 7)
+    cfg = dict(max_len=40, max_slots=2, paged="off")
+    _, bres, beng = _serve_both(models, prompts, gens, prefill_bucket=8,
+                                **cfg)
+    assert beng._pad_safe() == (arch == "stablelm-1.6b")
+    widths, prefill = [], beng.model.prefill
+
+    def record(params, batch, *a, **kw):
+        widths.append(batch["tokens"].shape[1])
+        return prefill(params, batch, *a, **kw)
+    beng.model.prefill = record
+    try:
+        cache, last = beng._prefill_slot(np.arange(6, dtype=np.int32))
+    finally:
+        beng.model.prefill = prefill
+    assert widths == [8 if beng._pad_safe() else 5] and last == 5
+    assert cache["pos"].tolist() == [5]
+    _, _, model, tparams = models
+    reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=g)
+            for i, (p, g) in enumerate(zip(prompts, gens))]
+    Engine(model, tparams, serve_cfg=ServeConfig(**cfg),
+           device="cpu").serve(reqs)
+    assert [r.out_tokens for r in reqs] == [r.out_tokens
+                                            for r in bres["requests"]]
