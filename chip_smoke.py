@@ -26,10 +26,15 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    must count exactly the CUDA kernels the design launches per call (one),
    and one call under ``torch.cuda.set_sync_debug_mode("error")`` must
    raise nothing (the wrapper reads no device value on the host).  The
-   four scan kernels are held and timed at every shape of SCAN_SHAPES;
-   the two chunk scans' CUDA kernels a call are counted by torch.profiler
-   against ``linear_scan.kernels_per_call`` (three for several chunks,
-   two for one) with one call under sync debug mode, and ``wkv_chunk`` is
+   four scan kernels are held and timed at every shape of SCAN_SHAPES
+   (the fused ones also at the batch-1 re-advance, (1, 1)), the timer's
+   floor is timed (a do-nothing launch, ``[timer]``), and the fused scan
+   wrappers' host time a call is measured at 8 slots through
+   ``kernels.ops`` (``[host]``);
+   each scan's CUDA kernels a call are counted by torch.profiler against
+   ``linear_scan.kernels_per_call`` (the fused ones one at 8 slots; the
+   chunk ones three for several chunks, two for one) with one call under
+   sync debug mode, and ``wkv_chunk`` is
    also held at decays down to 1e-30.  ``tuned_matmul`` is held at every
    tile of its menu at each shape of the JAX package's kernel tests, and at the default tiles on (64, 384, 256); ``flash_attention``
    at every case of those tests and the masking cases (S != Sk, rows that
@@ -129,16 +134,20 @@ RECURRENT_SERVE = dict(max_len=1024, max_slots=8, n_requests=16, gen=(32, 64),
                        prompts=(65, 129, 257, 513, 100, 300, 65, 129, 200,
                                 257, 100, 513, 300, 65, 129, 200))
 # the scan kernels' shapes, (B, T, chunk): decode at 8 slots (T=1, and
-# T=3 for a spec_depth 2 verify, chunk 3 in chunk mode), one sequence's
-# prefill aligned (T=512, 256, 64) and ragged (T=300), chunk 64 and 256;
+# T=3 for a spec_depth 2 verify, chunk 3 in chunk mode), the batch-1
+# re-advance after a rejected draft (1, 1: most of the fused kernels'
+# launches), one sequence's prefill aligned (T=512, 256, 64) and ragged
+# (T=300), chunk 64 and 256;
 # every shape is timed, the first entry of each list is the kernel's
-# record.  The chunk kernels' CUDA kernels a call are counted at their
-# first two shapes (several chunks, one chunk).
+# record.  The CUDA kernels a call are counted at the chunk kernels' first
+# two shapes (several chunks, one chunk) and the fused kernels' first.
 SCAN_SHAPES = {
-    "wkv_fused": [(8, 1, 0), (8, 3, 0), (1, 512, 0), (1, 300, 0)],
+    "wkv_fused": [(8, 1, 0), (1, 1, 0), (8, 3, 0), (1, 512, 0),
+                  (1, 300, 0)],
     "wkv_chunk": [(1, 512, 64), (8, 3, 3), (1, 300, 64), (1, 256, 64),
                   (1, 64, 64), (1, 512, 256)],
-    "ssd_fused": [(8, 1, 0), (8, 3, 0), (1, 512, 0), (1, 300, 0)],
+    "ssd_fused": [(8, 1, 0), (1, 1, 0), (8, 3, 0), (1, 512, 0),
+                  (1, 300, 0)],
     "ssd_chunk": [(1, 512, 64), (8, 3, 3), (1, 512, 256), (1, 300, 64),
                   (1, 256, 64), (1, 64, 64)],
 }
@@ -223,6 +232,16 @@ def time_ms(torch, fn, iters: int = 30, flush_mb: int = 128,
         if i >= 3:
             times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def timer_floor(torch) -> float:
+    """``time_ms`` of a do-nothing launch (``torch.cuda._sleep(0)``): the
+    floor under every time of a few microseconds, the events and one
+    launch included."""
+    ms = time_ms(torch, lambda: torch.cuda._sleep(0))
+    log(f"[timer] time_ms of a do-nothing launch (torch.cuda._sleep(0)): "
+        f"{ms:.4f} ms")
+    return ms
 
 
 def host_us_per_call(torch, fn, calls: int = 1000, batch: int = 100) -> float:
@@ -508,9 +527,10 @@ def scan_rate(torch) -> str:
 
 
 def scan_checks(torch, name, args, chunk) -> tuple:
-    """The chunk kernel's CUDA kernels a call (torch.profiler), held to
-    ``linear_scan.kernels_per_call``, and one call under sync debug mode
-    'error' (the wrapper reads nothing back and synchronises nothing)."""
+    """A scan kernel's CUDA kernels a call (torch.profiler), held to
+    ``linear_scan.kernels_per_call`` (one for the fused kernels), and one
+    call under sync debug mode 'error' (the wrapper reads nothing back and
+    synchronises nothing)."""
     from repro_torch.kernels import linear_scan as ls
     T = args[0].shape[2]
     n = kernels_per_call(torch, scan_kernel_call(name, args, chunk))
@@ -583,7 +603,7 @@ def scan_kernel_phase(torch) -> dict:
                 f"(bound {shape_bound:.5f})")
             check(ok, f"{name} B={B} T={T} chunk={chunk} disagrees with its "
                       f"plain version: {errs}")
-            if chunk and i < 2:
+            if i < (2 if chunk else 1):
                 n, _ = scan_checks(torch, name, args, chunk)
                 log(f"[scan] {name} B={B} T={T} chunk={chunk}: {n} CUDA "
                     f"kernels a call; a call under sync debug mode 'error' "
@@ -613,6 +633,32 @@ def scan_kernel_phase(torch) -> dict:
             records[name]["ms_by_shape"][f"{B},{T},{chunk}"] = ms
     records["wkv_chunk"]["extreme_max_abs_err"] = scan_extreme_phase(torch)
     return records
+
+
+def scan_host_phase(torch, records: dict) -> None:
+    """The fused scan wrappers' host time a call at 8 slots, T=1, through
+    ``kernels.ops`` (f32 inputs in the model layout, so that no conversion
+    is timed), in turns (wkv, ssd, ssd, wkv): what a CUDA graph of the
+    step would no longer pay."""
+    from repro_torch.kernels import ops
+    calls = {}
+    for name, fn in (("wkv_fused", ops.wkv), ("ssd_fused", ops.ssd)):
+        args = scan_inputs(torch, name, 400, 8, 1)
+        if name == "wkv_fused":
+            model = [t.transpose(1, 2).contiguous() for t in args[:4]]
+            model += args[4:]
+        else:
+            x, b, c, dt, a, s0 = args
+            model = [x.transpose(1, 2).contiguous(), b, c,
+                     dt.transpose(1, 2).contiguous(), a, s0]
+        calls[name] = (lambda fn=fn, model=model: fn(*model))
+    times: dict = {name: [] for name in calls}
+    for name in ("wkv_fused", "ssd_fused", "ssd_fused", "wkv_fused"):
+        times[name].append(host_us_per_call(torch, calls[name]))
+    for name, us in times.items():
+        records[name]["host_us"] = us
+        log(f"[host] {name} B=8 T=1 through kernels.ops (f32, model "
+            f"layout): host {us[0]:.2f} / {us[1]:.2f} us a call")
 
 
 @contextlib.contextmanager
@@ -1359,6 +1405,10 @@ def main() -> int:
     record = kernel_phase(torch)
     check(record is not None, "the timed kernel configuration never ran")
     scan_records = scan_kernel_phase(torch)
+    floor_ms = timer_floor(torch)
+    for name in ("wkv_fused", "ssd_fused"):
+        scan_records[name]["timer_floor_ms"] = floor_ms
+    scan_host_phase(torch, scan_records)
     dense_records = dense_kernel_phase(torch)
     for name, count in ops_path_phase(torch).items():
         dense_records[name]["launches"] = count

@@ -1,22 +1,37 @@
 #!/usr/bin/env python3
-"""Time an older ``linear_scan.cu`` against the package's chunk scans on
-one NVIDIA GPU, at the same inputs and in turns (old, new, new, old).
+"""Time an older ``linear_scan.cu`` against the package's scans on one
+NVIDIA GPU, at the same inputs and in turns (old, new, new, old).
 
     git show 60c0707:src/repro_torch/kernels/csrc/linear_scan.cu \\
         > build/linear_scan_old.cu
     python3 scan_versions.py build/linear_scan_old.cu
 
-The older source must have the earlier chunk launchers' interface, which
-takes one f32 scratch tensor: ``wkv_chunk_launch(r, k, v, w, u,
-s0, out, s_out, scratch, B, H, T, N, chunk, stream)`` and
-``ssd_chunk_launch(x, b, c, dt, a, s0, y, s_out, scratch, B, H, T, P, N,
-chunk, stream)``.  It is built with the package's nvcc flags into
+times the chunk scans at (B, T, chunk) = SHAPES.  The older source must
+have the earlier chunk launchers' interface, which takes one f32 scratch
+tensor: ``wkv_chunk_launch(r, k, v, w, u, s0, out, s_out, scratch, B, H,
+T, N, chunk, stream)`` and ``ssd_chunk_launch(x, b, c, dt, a, s0, y,
+s_out, scratch, B, H, T, P, N, chunk, stream)``.
+
+    git show 3e21b83:src/repro_torch/kernels/csrc/linear_scan.cu \\
+        > build/linear_scan_fused_old.cu
+    python3 scan_versions.py --fused build/linear_scan_fused_old.cu
+
+times the fused scans at (B, T) = FUSED_SHAPES (the batch-1 re-advance,
+decode at 8 slots, the verify block, a ragged prefill), through the
+fused launchers, whose C interface every version shares:
+``wkv_fused_launch(r, k, v, w, u, s0, out, s_out, B, H, T, N, stream)``
+and ``ssd_fused_launch(x, b, c, dt, a, s0, y, s_out, B, H, T, P, N,
+stream)``.  It also times the timer's floor (a do-nothing launch) and,
+at each shape, one ``copy_`` of the entry state (the state's bytes alone,
+read once and written once).
+
+The older source is built with the package's nvcc flags into
 ``build/scan_versions/``.  The package's kernels run through
 ``repro_torch.kernels.linear_scan``.  Widths are ``chip_smoke.py``'s
 (rwkv6-3b, zamba2-2.7b), inputs its ``scan_inputs`` and the timer its
 ``time_ms``.  Each version's output and final state are held against the
 plain version (``ref.KERNEL_TOL``, f32); only the package's must agree.
-The package's kernels are also timed one by one (torch.profiler's device
+Both versions' kernels are also timed one by one (torch.profiler's device
 time of each CUDA kernel a call, after an L2 flush).
 Prints the card line, one line per (kernel, shape) and a JSON summary,
 also written to ``build/scan_versions.json``.
@@ -33,6 +48,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SHAPES = [(1, 512, 64), (1, 256, 64), (1, 512, 256), (8, 3, 3), (1, 64, 64)]
+FUSED_SHAPES = [(1, 1, 0), (8, 1, 0), (8, 3, 0), (1, 300, 0)]
 
 
 def build_old(src: Path) -> ctypes.CDLL:
@@ -49,16 +65,41 @@ def build_old(src: Path) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # the chunk launchers as PRs 12-15 declared them (only the chunk mode
+    # calls them), the fused ones as every version does
     lib.wkv_chunk_launch.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
     lib.ssd_chunk_launch.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
-    lib.wkv_chunk_launch.restype = lib.ssd_chunk_launch.restype = i32
+    lib.wkv_fused_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+    lib.ssd_fused_launch.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+    for fn in ("wkv_chunk_launch", "ssd_chunk_launch", "wkv_fused_launch",
+               "ssd_fused_launch"):
+        getattr(lib, fn).restype = i32
     return lib
 
 
 def old_call(torch, lib, name, args, chunk):
     """The older kernel on kernel-layout ``args``: (out, final state)."""
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    if name == "wkv_chunk":
+    if name == "wkv_fused":
+        r, k, v, w, u, s0 = args
+
+        def call():
+            out, s_out = torch.empty_like(r), torch.empty_like(s0)
+            rc = lib.wkv_fused_launch(*[t.data_ptr() for t in (
+                r, k, v, w, u, s0, out, s_out)], *r.shape, stream())
+            assert rc == 0, rc
+            return out, s_out
+    elif name == "ssd_fused":
+        x, b, c, dt, a, s0 = args
+
+        def call():
+            y, s_out = torch.empty_like(x), torch.empty_like(s0)
+            rc = lib.ssd_fused_launch(*[t.data_ptr() for t in (
+                x, b, c, dt, a, s0, y, s_out)], *x.shape, b.shape[-1],
+                stream())
+            assert rc == 0, rc
+            return y, s_out
+    elif name == "wkv_chunk":
         r, k, v, w, u, s0 = args
         B, H, T, N = r.shape
 
@@ -110,7 +151,11 @@ def phase_times(torch, fn, calls: int = 20) -> dict:
 
 def main() -> int:
     import torch
-    if not torch.cuda.is_available() or len(sys.argv) != 2:
+    argv = sys.argv[1:]
+    fused = argv[:1] == ["--fused"]
+    if fused:
+        argv = argv[1:]
+    if not torch.cuda.is_available() or len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
@@ -121,11 +166,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
     print(f"[card] {card}", flush=True)
-    lib = build_old(Path(sys.argv[1]))
+    lib = build_old(Path(argv[0]))
     ls.build()
-    rows = []
-    for name in ("wkv_chunk", "ssd_chunk"):
-        for i, (B, T, chunk) in enumerate(SHAPES):
+    summary = {"card": card, "rows": []}
+    if fused:
+        summary["timer_floor_ms"] = cs.timer_floor(torch)
+    rows = summary["rows"]
+    names, shapes = ((("wkv_fused", "ssd_fused"), FUSED_SHAPES) if fused
+                     else (("wkv_chunk", "ssd_chunk"), SHAPES))
+    for name in names:
+        for i, (B, T, chunk) in enumerate(shapes):
             args = cs.scan_inputs(torch, name, 500 + i, B, T)
             old = old_call(torch, lib, name, args, chunk)
             new = cs.scan_kernel_call(name, args, chunk)
@@ -146,23 +196,34 @@ def main() -> int:
                                                else new))
             bound, _ = cs.scan_work(torch, name, B, T)
             phases = phase_times(torch, new)
+            old_phases = phase_times(torch, old)
+            if fused:   # the state's bytes alone: one copy, read and write
+                s_in = args[5]
+                s_copy = torch.empty_like(s_in)
+                copy = lambda: s_copy.copy_(s_in)  # noqa: E731
+                copy_ms = cs.time_ms(torch, copy)
+                phases["state copy"] = sum(phase_times(torch, copy).values())
             row = {"name": name, "B": B, "T": T, "chunk": chunk,
                    "old_ms": times["old"], "new_ms": times["new"],
                    "bound_ms": bound, "new_phase_ms": phases,
+                   "old_phase_ms": old_phases,
+                   "state_copy_ms": copy_ms if fused else None,
                    "kernels_per_call": ls.kernels_per_call(T, chunk),
                    "old_max_abs_err": errs["old"][0],
                    "old_within_tol": errs["old"][1],
                    "new_max_abs_err": errs["new"][0]}
             rows.append(row)
+            copied = (f", state copy {copy_ms:.4f} ms" if fused else "")
             print(f"[versions] {name} B={B} T={T} chunk={chunk}: old "
                   f"{times['old'][0]:.4f}/{times['old'][1]:.4f} ms, new "
                   f"{times['new'][0]:.4f}/{times['new'][1]:.4f} ms, bound "
-                  f"{bound:.5f} ms; max_abs_err old {errs['old'][0]:.2e} "
+                  f"{bound:.5f} ms{copied}; max_abs_err old {errs['old'][0]:.2e} "
                   f"(within tol: {errs['old'][1]}) new {errs['new'][0]:.2e}; "
-                  f"new by kernel: " + ", ".join(
-                      f"{k} {v:.4f}" for k, v in phases.items()),
+                  f"device time by kernel: new " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in phases.items())
+                  + "; old " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in old_phases.items()),
                   flush=True)
-    summary = {"card": card, "rows": rows}
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "scan_versions.json").write_text(json.dumps(summary, indent=1))

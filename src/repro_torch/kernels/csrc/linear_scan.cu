@@ -16,12 +16,13 @@
 // On the TPU the time axis was the sequential grid dimension, with the
 // state carried in VMEM scratch from one grid step to the next and T cut
 // into `bt`-step tiles that had to divide T.  Hopper runs blocks in no
-// order.  The fused kernels give one block a (batch row, head) that walks
-// the sequence with the state on chip; the chunk kernels split the scan
-// into chunk states, a state pass over chunks and outputs by (chunk,
-// 64-step query tile), each its own grid.  Any T is taken, and a chunk
-// length that does not divide T leaves a shorter last chunk (as in the
-// plain `wkv_chunk` / `ssd_chunk`).
+// order.  The fused kernels split each (batch row, head) state over blocks
+// along its independent axis (SSD's rows, WKV's value columns), each block
+// walking the sequence with its slice of the state in registers; the chunk
+// kernels split the scan into chunk states, a state pass over chunks and
+// outputs by (chunk, 64-step query tile), each its own grid.  Any T is
+// taken, and a chunk length that does not divide T leaves a shorter last
+// chunk (as in the plain `wkv_chunk` / `ssd_chunk`).
 //
 // Exponentials are expf (no fast-math intrinsics), and masked exponents
 // are skipped, never evaluated: an overflow times a zero mask would give
@@ -36,111 +37,335 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// wkv_fused — replaces `wkv_kernel` (linear_scan.py:62).
+// wkv_fused and ssd_fused — the sequential recurrences, replacing
+// `wkv_kernel` (linear_scan.py:62) and `ssd_kernel` (linear_scan.py:200).
 //
-// What bounds it.  Per step and (b, h) it does ~7 N^2 flops on N^2 state
-// floats that stay on chip, so at decode (T = 1) the work is the state read
-// and written once plus the r/k/v/w/out rows: bytes, far below the card's
-// flop rate (rwkv6-3b, 8 slots x 40 heads x 64 x 64: 10.5 MB of state per
-// layer call, about 3.1 us at 3.35 TB/s).
+// What bounds them.  Per step and (b, h) WKV does ~7 N^2 flops and SSD
+// ~5 P N on a state of N^2 or P N floats that stays on chip, so at decode
+// (T = 1: the pool step, and the batch-1 re-advance after a rejected draft)
+// the work is the state read once and written once plus a few input rows:
+// bytes.  At 8 slots that is 10.9 MB a call for rwkv6-3b (40 heads of 64),
+// 3.26 us at 3.35 TB/s, and 21.3 MB for zamba2-2.7b (80 heads, P = N = 64),
+// 6.36 us; at one slot 1.37 and 2.66 MB, under a microsecond, so that one
+// launch and one round trip to device memory are most of a call.
 //
-// What the design does about it.  One block of N threads per (b, h);
-// thread i keeps column i of S (N floats) in registers for the whole
-// sequence, so the state crosses device memory exactly twice per call.
-// Each step stages r_t, k_t, w_t in shared memory (double-buffered, one
-// barrier a step); out_i = sum_j r_j (S[j][i] + u_j k_j v_i) and
-// S[j][i] <- w_j S[j][i] + k_j v_i are then sums inside one thread.  At
-// prefill only H blocks run per sequence (40 on 132 SMs), each serial in T.
+// What the design does about it.
+// * Each (b, h) state is split across blocks along its independent axis:
+//   SSD's rows p (y_p = sum_n S[p][n] c_n needs only x_p, dt, b and c),
+//   grid (row tile, H, B); WKV's value columns i (out_i = sum_j r_j S[j][i]
+//   + (sum_j r_j u_j k_j) v_i, the bracket the same for every i), grid
+//   (column tile, H, B).  A block is 4 warps at width 64, and a thread
+//   holds R float4s of the state: the launcher takes the largest R that
+//   leaves at least kMinBlocks blocks (two an SM), so that a batch-1 call
+//   fills the card (R = 1 for WKV, 8-column tiles; R = 2 for SSD, 16-row
+//   tiles: 320 blocks for either family) and a batch-8 call has the whole
+//   state in flight in one wave of blocks (R = 4, 32 columns; R = 8, 64
+//   rows: 640 blocks) instead of 2-3 waves of short blocks, each waiting
+//   on device memory in turn.
+// * The state moves as 16-byte streaming loads and stores (__ldcs / __stcs:
+//   read once, written once), neighbouring lanes on neighbouring addresses
+//   (SSD: N / 4 lanes a row, 512 contiguous bytes a warp; WKV: 2R lanes a
+//   row's slice of the tile, 32R contiguous bytes), all issued before the
+//   first step.  It stays in registers for the whole sequence, and is
+//   stored right after the last step (SSD: after the last update, before
+//   that step's reductions).
+// * Reductions are shuffle trees, not serial chains.  SSD: a row's N terms
+//   are 4 a lane, then xor-shuffles over its N / 4 lanes.  WKV: a thread
+//   sums its R rows, then the sum over j is a reduce-scatter over the lanes
+//   of a warp that share a column group (2 shuffles trade halves of its 4
+//   columns, 1 quarters, the rest add), then a sum over the warps through
+//   shared memory, once a stage of steps, when the outputs are written.
+//   The decay expf(dt a) (SSD; by the thread that staged dt_t, before the
+//   stage's barrier) and the bonus sum_j r_j u_j k_j (WKV; a warp a step,
+//   after the steps, for the outputs) are computed once per (b, h, t) in a
+//   block and read from shared memory.
+// * Step inputs arrive ahead of use.  Stages of up to kStage steps (x, dt,
+//   b, c or r, k, v, w) reach shared memory as cp.async copies, the next
+//   stage's issued when the current one starts, so no step waits on a
+//   global load; b and c (shared by every head and row tile) and r, k, w
+//   (by every column tile) come from L2 after the first block.  Outputs
+//   collect in shared memory and are written once a stage, coalesced.
+//   Shared memory is sized to the call: one stage of min(T, kStage) steps,
+//   two when T is longer (at most 37 KB).
 // ---------------------------------------------------------------------------
-template <int N>
-__global__ void __launch_bounds__(N)
+
+constexpr int kStage = 16;        // time steps a fused block stages at a time
+constexpr int kMinBlocks = 264;   // blocks a fused call keeps: two an SM
+
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
+// steps of a stage, and shared buffers of stages, of a fused call of T steps
+__host__ __device__ inline int fused_steps(int T) {
+  return T < 1 ? 1 : (T < kStage ? T : kStage);
+}
+__host__ __device__ inline int fused_bufs(int T) { return T > kStage ? 2 : 1; }
+
+// The state a fused thread holds, in float4s: the largest power of two
+// from `least` to `most` that leaves a grid of `blocks_least` blocks (at
+// `least`) at least kMinBlocks.
+inline int fused_per_thread(long blocks_least, int least, int most) {
+  int r = least;
+  while (2 * r <= most && blocks_least * least / (2 * r) >= kMinBlocks)
+    r *= 2;
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_state(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void st_state(float* p, float4 v) {
+  __stcs(reinterpret_cast<float4*>(p), v);
+}
+
+// n floats (a multiple of 4, both ends 16-byte aligned) from global `src`
+// to shared `dst` as asynchronous 16-byte copies by the block's threads
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int n) {
+  for (int e = 4 * (int)threadIdx.x; e < n; e += 4 * (int)blockDim.x)
+    __pipeline_memcpy_async(dst + e, src + e, 16);
+}
+
+template <int N, int R>
+struct WkvFused {   // R rows j of S a thread, one float4 of each
+  static constexpr int kGroups = 2 * R;            // float4s of a row's slice
+  static constexpr int kCols = 4 * kGroups;        // value columns a block
+  static constexpr int kThreads = 2 * N;           // N / R rows x kGroups
+  static constexpr int kWarps = kThreads / 32;
+  // a stage buffer: r, k, w rows (K, N) and the tile's v columns (K, kCols)
+  __host__ __device__ static int buf_floats(int K) {
+    return 3 * K * N + kCols * K;
+  }
+  // + u (N), the bonus (K), the warps' partial sums (K, kWarps, kCols)
+  __host__ __device__ static int smem_floats(int T) {
+    const int K = fused_steps(T);
+    return fused_bufs(T) * buf_floats(K) + N + pad4(K) + K * kWarps * kCols;
+  }
+};
+
+template <int N, int R>
+__global__ void __launch_bounds__(WkvFused<N, R>::kThreads)
 wkv_fused_kernel(const float* __restrict__ r, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ w,
                  const float* __restrict__ u, const float* __restrict__ s0,
                  float* __restrict__ out, float* __restrict__ s_out, int H,
                  int T) {
-  __shared__ float rs[2][N], ks[2][N], ws[2][N], us[N];
-  const int bh = blockIdx.x;
-  const int i = threadIdx.x;
-  const float* s0p = s0 + (size_t)bh * N * N;
-  float s[N];
+  using F = WkvFused<N, R>;
+  constexpr int kC = F::kCols, kG = F::kGroups, kW = F::kWarps;
+  constexpr int kStride = N / R;                   // between a thread's rows
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int K = fused_steps(T), nst = (T + K - 1) / K;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // thread: rows jr + m N / R of S, columns c0 + 4g .. c0 + 4g + 3; lane
+  // bits log2(2R)..4 are jr's low bits, so the 16 / R lanes of a warp that
+  // share g hold 16 rows
+  const int g = tid % kG, jr = tid / kG;
+  const int c0 = blockIdx.x * kC, h = blockIdx.y;
+  const size_t bh = (size_t)blockIdx.z * H + h;
+  const size_t sidx = (bh * N + jr) * N + c0 + 4 * g;
+  float4 s[R];
 #pragma unroll
-  for (int j = 0; j < N; ++j) s[j] = s0p[j * N + i];
-  us[i] = u[(bh % H) * N + i];
-  const size_t base = (size_t)bh * T * N;
-  for (int t = 0; t < T; ++t) {
-    const int buf = t & 1;
-    const size_t off = base + (size_t)t * N + i;
-    rs[buf][i] = r[off];
-    ks[buf][i] = k[off];
-    ws[buf][i] = w[off];
-    const float vi = v[off];
-    __syncthreads();
-    float acc = 0.f;
+  for (int m = 0; m < R; ++m) s[m] = ld_state(s0 + sidx + m * kStride * N);
+  auto store_state = [&] {
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const float kv = ks[buf][j] * vi;
-      acc += rs[buf][j] * (s[j] + us[j] * kv);
-      s[j] = ws[buf][j] * s[j] + kv;
+    for (int m = 0; m < R; ++m) st_state(s_out + sidx + m * kStride * N, s[m]);
+  };
+  float* us = smem + fused_bufs(T) * F::buf_floats(K);
+  float* bonus = us + N;
+  float* part = bonus + pad4(K);
+  auto buffer = [&](int st) { return smem + (st & 1) * F::buf_floats(K); };
+  auto stage = [&](int st) {
+    float* rs = buffer(st);
+    const int t0 = st * K, n = min(K, T - t0);
+    const size_t row = (bh * T + t0) * N;
+    stage_rows(rs, r + row, n * N);
+    stage_rows(rs + K * N, k + row, n * N);
+    stage_rows(rs + 2 * K * N, w + row, n * N);
+    float* vs = rs + 3 * K * N;
+    for (int e = tid; e < n * kG; e += F::kThreads) {
+      const int t = e / kG, q = e % kG;
+      __pipeline_memcpy_async(vs + t * kC + 4 * q,
+                              v + row + (size_t)t * N + c0 + 4 * q, 16);
     }
-    out[off] = acc;
+    __pipeline_commit();
+  };
+  if (nst > 0) {
+    stage_rows(us, u + (size_t)h * N, N);
+    stage(0);
   }
-  float* sop = s_out + (size_t)bh * N * N;
+  for (int st = 0; st < nst; ++st) {
+    const float* rs = buffer(st);
+    const float* ks = rs + K * N;
+    const float* ws = ks + K * N;
+    const float* vs = ws + K * N;
+    const int t0 = st * K, n = min(K, T - t0);
+    __pipeline_wait_prior(0);
+    __syncthreads();                 // stage st landed; st - 1 all read
+    if (st + 1 < nst) stage(st + 1);
+#pragma unroll 2
+    for (int t = 0; t < n; ++t) {
+      const float4 vv = *reinterpret_cast<const float4*>(vs + t * kC + 4 * g);
+      float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
 #pragma unroll
-  for (int j = 0; j < N; ++j) sop[j * N + i] = s[j];
+      for (int m = 0; m < R; ++m) {
+        const int j = jr + m * kStride;
+        const float rj = rs[t * N + j], kj = ks[t * N + j];
+        const float wj = ws[t * N + j];
+        p0 = fmaf(rj, s[m].x, p0);
+        p1 = fmaf(rj, s[m].y, p1);
+        p2 = fmaf(rj, s[m].z, p2);
+        p3 = fmaf(rj, s[m].w, p3);
+        s[m].x = wj * s[m].x + kj * vv.x;
+        s[m].y = wj * s[m].y + kj * vv.y;
+        s[m].z = wj * s[m].z + kj * vv.z;
+        s[m].w = wj * s[m].w + kj * vv.w;
+      }
+      // reduce-scatter over the lanes sharing g: lanes 16 apart trade the
+      // halves of the 4 columns, lanes 8 apart the quarters, the rest add;
+      // column 2 * b4 + b3 ends on the lanes with bits (b4, b3)
+      const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1;
+      float a0 = b4 ? p2 : p0, a1 = b4 ? p3 : p1;
+      a0 += __shfl_xor_sync(kAll, b4 ? p0 : p2, 16);
+      a1 += __shfl_xor_sync(kAll, b4 ? p1 : p3, 16);
+      float e = b3 ? a1 : a0;
+      e += __shfl_xor_sync(kAll, b3 ? a0 : a1, 8);
+#pragma unroll
+      for (int o = 4; o >= kG; o >>= 1) e += __shfl_xor_sync(kAll, e, o);
+      if ((lane & (8 - kG)) == 0)
+        part[(t * kW + warp) * kC + 4 * g + 2 * b4 + b3] = e;
+    }
+    if (st + 1 == nst) store_state();
+    for (int t = warp; t < n; t += kW) {   // the bonus: a warp a step
+      float p = 0.f;
+      for (int i = lane; i < N; i += 32)
+        p += rs[t * N + i] * us[i] * ks[t * N + i];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(kAll, p, o);
+      if (lane == 0) bonus[t] = p;
+    }
+    __syncthreads();
+    for (int e = tid; e < n * kC; e += F::kThreads) {
+      const int t = e / kC, col = e % kC;
+      float o = part[t * kW * kC + col];
+#pragma unroll
+      for (int q = 1; q < kW; ++q) o += part[(t * kW + q) * kC + col];
+      out[(bh * T + t0 + t) * N + c0 + col] = fmaf(bonus[t], vs[e], o);
+    }
+  }
+  if (nst == 0) store_state();
 }
 
-// ---------------------------------------------------------------------------
-// ssd_fused — replaces `ssd_kernel` (linear_scan.py:200).
-//
-// What bounds it.  As wkv_fused: ~5 P N flops per step on P N state floats,
-// so bytes (zamba2-2.7b decode, 8 slots x 80 heads x 64 x 64: 21.0 MB of
-// state per layer call, about 6.3 us at 3.35 TB/s).
-//
-// What the design does about it.  One block of P threads per (b, h);
-// thread p keeps row p of S (N floats) in registers for the whole sequence.
-// b_t and c_t, shared by every head, are staged in shared memory once per
-// block and step (double-buffered); dt_t is a broadcast load.
-// ---------------------------------------------------------------------------
-template <int N>
-__global__ void __launch_bounds__(64)
+template <int N, int R>
+struct SsdFused {   // R rows p of S a thread, 8 rows a pass of the block
+  static constexpr int kLanes = N / 4;             // lanes of a state row
+  static constexpr int kThreads = 8 * kLanes;
+  static constexpr int kRows = 8 * R;              // rows p a block
+  // a stage buffer: b, c rows (K, N), the tile's x (K, kRows), dt (K)
+  __host__ __device__ static int buf_floats(int K) {
+    return 2 * K * N + kRows * K + pad4(K);
+  }
+  // + the decays (K) and the outputs (K, kRows)
+  __host__ __device__ static int smem_floats(int T) {
+    const int K = fused_steps(T);
+    return fused_bufs(T) * buf_floats(K) + pad4(K) + kRows * K;
+  }
+};
+
+template <int N, int R>
+__global__ void __launch_bounds__(SsdFused<N, R>::kThreads)
 ssd_fused_kernel(const float* __restrict__ x, const float* __restrict__ b,
                  const float* __restrict__ c, const float* __restrict__ dt,
                  const float* __restrict__ a, const float* __restrict__ s0,
                  float* __restrict__ y, float* __restrict__ s_out, int H,
                  int T, int P) {
-  __shared__ float bs[2][N], cs[2][N];
-  const int bh = blockIdx.x;
-  const int bidx = bh / H;
-  const int p = threadIdx.x;
-  const float* s0p = s0 + ((size_t)bh * P + p) * N;
-  float s[N];
+  using F = SsdFused<N, R>;
+  constexpr int kL = F::kLanes, kR = F::kRows;
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int K = fused_steps(T), nst = (T + K - 1) / K;
+  // thread: rows p0 + rr + 8i of S (i < R), columns 4q .. 4q + 3
+  const int tid = threadIdx.x, q = tid % kL, rr = tid / kL;
+  const int p0 = blockIdx.x * kR, h = blockIdx.y, bi = blockIdx.z;
+  const size_t bh = (size_t)bi * H + h;
+  const size_t sidx = (bh * P + p0 + rr) * N + 4 * q;
+  float4 s[R];
 #pragma unroll
-  for (int n = 0; n < N; ++n) s[n] = s0p[n];
-  const float ah = a[bh % H];
-  for (int t = 0; t < T; ++t) {
-    const int buf = t & 1;
-    const size_t bc_off = ((size_t)bidx * T + t) * N;
-    for (int n = p; n < N; n += P) {
-      bs[buf][n] = b[bc_off + n];
-      cs[buf][n] = c[bc_off + n];
+  for (int i = 0; i < R; ++i) s[i] = ld_state(s0 + sidx + 8 * i * N);
+  auto store_state = [&] {
+#pragma unroll
+    for (int i = 0; i < R; ++i) st_state(s_out + sidx + 8 * i * N, s[i]);
+  };
+  const float ah = a[h];
+  float* decay = smem + fused_bufs(T) * F::buf_floats(K);
+  float* ys = decay + pad4(K);
+  auto buffer = [&](int st) { return smem + (st & 1) * F::buf_floats(K); };
+  // thread t < n stages dt_t and, once its copies have landed, the decay
+  auto stage = [&](int st) {
+    float* bs = buffer(st);
+    float* xs = bs + 2 * K * N;
+    float* dts = xs + kR * K;
+    const int t0 = st * K, n = min(K, T - t0);
+    const size_t row = ((size_t)bi * T + t0) * N;
+    stage_rows(bs, b + row, n * N);
+    stage_rows(bs + K * N, c + row, n * N);
+    for (int e = tid; e < n * (kR / 4); e += F::kThreads) {
+      const int t = e / (kR / 4), i = e % (kR / 4);
+      __pipeline_memcpy_async(xs + t * kR + 4 * i,
+                              x + (bh * T + t0 + t) * P + p0 + 4 * i, 16);
     }
-    const float dtt = dt[(size_t)bh * T + t];
-    const size_t off = ((size_t)bh * T + t) * P + p;
-    const float dx = dtt * x[off];
-    const float decay = expf(dtt * ah);
+    if (tid < n) __pipeline_memcpy_async(dts + tid, dt + bh * T + t0 + tid, 4);
+    __pipeline_commit();
+  };
+  if (nst > 0) stage(0);
+  for (int st = 0; st < nst; ++st) {
+    const float* bs = buffer(st);
+    const float* cs = bs + K * N;
+    const float* xs = cs + K * N;
+    const float* dts = xs + kR * K;
+    const int t0 = st * K, n = min(K, T - t0);
+    __pipeline_wait_prior(0);
+    if (tid < n) decay[tid] = expf(dts[tid] * ah);
+    __syncthreads();                 // stage st landed; st - 1 all read
+    if (st + 1 < nst) stage(st + 1);
+#pragma unroll 2
+    for (int t = 0; t < n; ++t) {
+      const float4 bv = *reinterpret_cast<const float4*>(bs + t * N + 4 * q);
+      const float4 cv = *reinterpret_cast<const float4*>(cs + t * N + 4 * q);
+      const float gt = decay[t], d = dts[t];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float dx = d * xs[t * kR + rr + 8 * i];
+        s[i].x = gt * s[i].x + dx * bv.x;
+        s[i].y = gt * s[i].y + dx * bv.y;
+        s[i].z = gt * s[i].z + dx * bv.z;
+        s[i].w = gt * s[i].w + dx * bv.w;
+      }
+      if (st + 1 == nst && t + 1 == n) store_state();
+      float part[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float acc = s[i].x * cv.x;
+        acc = fmaf(s[i].y, cv.y, acc);
+        acc = fmaf(s[i].z, cv.z, acc);
+        part[i] = fmaf(s[i].w, cv.w, acc);
+      }
+#pragma unroll
+      for (int o = kL / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          part[i] += __shfl_xor_sync(kAll, part[i], o);
+      if (q == 0) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) ys[t * kR + rr + 8 * i] = part[i];
+      }
+    }
     __syncthreads();
-    float acc = 0.f;
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      s[n] = decay * s[n] + dx * bs[buf][n];
-      acc += s[n] * cs[buf][n];
-    }
-    y[off] = acc;
+    for (int e = tid; e < n * kR; e += F::kThreads)
+      y[(bh * T + t0 + e / kR) * P + p0 + e % kR] = ys[e];
   }
-  float* sop = s_out + ((size_t)bh * P + p) * N;
-#pragma unroll
-  for (int n = 0; n < N; ++n) sop[n] = s[n];
+  if (nst == 0) store_state();
 }
 
 // ---------------------------------------------------------------------------
@@ -1046,6 +1271,17 @@ int dispatch_dim(int n, F&& f) {
   }
 }
 
+// the state a fused thread holds, in float4s (fused_per_thread)
+template <typename F>
+void dispatch_per(int r, F&& f) {
+  switch (r) {
+    case 1: f(std::integral_constant<int, 1>{}); break;
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    default: f(std::integral_constant<int, 8>{}); break;
+  }
+}
+
 // The chunked scans enqueue their chunk-state kernel, the state pass when
 // there is more than one chunk, and the output kernel; a call of one
 // 64-step tile only the output kernel, which then writes the final state
@@ -1097,13 +1333,28 @@ int wkv_fused_launch(const void* r, const void* k, const void* v,
                      const void* w, const void* u, const void* s0, void* out,
                      void* s_out, int B, int H, int T, int N, void* stream) {
   if (B * H == 0) return 0;
-  const int rc = dispatch_dim(N, [&](auto n) {
+  int rc = 0;
+  const int rd = dispatch_dim(N, [&](auto n) {
     constexpr int kN = decltype(n)::value;
-    wkv_fused_kernel<kN><<<B * H, kN, 0, (cudaStream_t)stream>>>(
-        (const float*)r, (const float*)k, (const float*)v, (const float*)w,
-        (const float*)u, (const float*)s0, (float*)out, (float*)s_out, H, T);
+    const int per =
+        fused_per_thread((long)B * H * (kN / 8), 1, min(4, kN / 8));
+    dispatch_per(per, [&](auto rr) {
+      constexpr int kR = decltype(rr)::value;
+      if constexpr (kR <= 4 && 8 * kR <= kN) {
+        using F = WkvFused<kN, kR>;
+        wkv_fused_kernel<kN, kR><<<dim3(kN / F::kCols, H, B), F::kThreads,
+                                   F::smem_floats(T) * sizeof(float),
+                                   (cudaStream_t)stream>>>(
+            (const float*)r, (const float*)k, (const float*)v,
+            (const float*)w, (const float*)u, (const float*)s0,
+            (float*)out, (float*)s_out, H, T);
+      } else {
+        rc = (int)cudaErrorInvalidValue;
+      }
+    });
   });
-  return rc ? rc : (int)cudaGetLastError();
+  if (rd || rc) return rd ? rd : rc;
+  return (int)cudaGetLastError();
 }
 
 int wkv_chunk_launch(const void* r, const void* k, const void* v,
@@ -1149,13 +1400,28 @@ int ssd_fused_launch(const void* x, const void* b, const void* c,
                      void* stream) {
   if (B * H == 0) return 0;
   if (P != 16 && P != 64) return (int)cudaErrorInvalidValue;
-  const int rc = dispatch_dim(N, [&](auto n) {
+  int rc = 0;
+  const int rd = dispatch_dim(N, [&](auto n) {
     constexpr int kN = decltype(n)::value;
-    ssd_fused_kernel<kN><<<B * H, P, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)b, (const float*)c, (const float*)dt,
-        (const float*)a, (const float*)s0, (float*)y, (float*)s_out, H, T, P);
+    const int per =
+        fused_per_thread((long)B * H * (P / 16), 2, min(8, P / 8));
+    dispatch_per(per, [&](auto rr) {
+      constexpr int kR = decltype(rr)::value;
+      if constexpr (kR >= 2) {
+        using F = SsdFused<kN, kR>;
+        ssd_fused_kernel<kN, kR><<<dim3(P / F::kRows, H, B), F::kThreads,
+                                   F::smem_floats(T) * sizeof(float),
+                                   (cudaStream_t)stream>>>(
+            (const float*)x, (const float*)b, (const float*)c,
+            (const float*)dt, (const float*)a, (const float*)s0, (float*)y,
+            (float*)s_out, H, T, P);
+      } else {
+        rc = (int)cudaErrorInvalidValue;
+      }
+    });
   });
-  return rc ? rc : (int)cudaGetLastError();
+  if (rd || rc) return rd ? rd : rc;
+  return (int)cudaGetLastError();
 }
 
 int ssd_chunk_launch(const void* x, const void* b, const void* c,

@@ -4,9 +4,12 @@ JAX package's ``kernels/linear_scan.py``.
 
 Two modes of each recurrence:
 
-* ``wkv_fused`` / ``ssd_fused`` — the sequential recurrence, one thread
-  block per (batch row, head) holding the state in registers for the whole
-  sequence (decode, speculative verify, ragged prefill);
+* ``wkv_fused`` / ``ssd_fused`` — the sequential recurrence, each (batch
+  row, head) state split over blocks along its independent axis (SSD's
+  rows, WKV's value columns; tiles of 16 rows or 8 columns at batch 1,
+  wider where the batch alone fills the card), each block holding its
+  slice in registers for the whole sequence and the step inputs staged
+  ahead in shared memory (decode, speculative verify, ragged prefill);
 * ``wkv_chunk`` / ``ssd_chunk`` — the same recurrence reassociated into
   matmul form per ``chunk`` steps, as a chunk-parallel scan: a kernel for
   every chunk's state contribution, a state pass that carries the state
@@ -15,7 +18,8 @@ Two modes of each recurrence:
   fits one chunk skips the state pass, and one that fits one tile is one
   kernel (:func:`kernels_per_call`).
 
-Kernel layout, all float32 and contiguous: WKV r, k, v, w ``(B, H, T, N)``,
+Kernel layout, all float32, contiguous and 16-byte aligned (the kernels
+move rows as 16-byte copies): WKV r, k, v, w ``(B, H, T, N)``,
 u ``(H, N)``, state ``(B, H, N, N)``; SSD x ``(B, H, T, P)``, b, c
 ``(B, T, N)``, dt ``(B, H, T)``, a ``(H,)``, state ``(B, H, P, N)``.  Each
 returns (output, final state) as new tensors.  Any T is taken; a chunk that
@@ -71,8 +75,9 @@ def build() -> None:
 
 
 def _check(tensors: dict, shapes: dict) -> torch.device:
-    """Every tensor a contiguous f32 CUDA tensor on one device, of the
-    shape given; raises on anything the kernels do not take."""
+    """Every tensor a contiguous, 16-byte aligned f32 CUDA tensor on one
+    device, of the shape given; raises on anything the kernels do not
+    take."""
     dev = None
     for name, t in tensors.items():
         if t.device.type != "cuda":
@@ -86,6 +91,8 @@ def _check(tensors: dict, shapes: dict) -> torch.device:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shapes[name]}")

@@ -66,6 +66,13 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 SCAN_MODES = ("fused_recurrent", "chunk")
 
 
+def _scan_f32(t):
+    """``t`` as a contiguous, 16-byte aligned f32 tensor (the scan kernels'
+    layout): a view that is already so is passed as it is."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _scan_mode(mode: str) -> bool:
     """Whether ``mode`` is the chunked scan; raises on an unknown mode."""
     if mode not in SCAN_MODES:
@@ -84,10 +91,9 @@ def wkv(r, k, v, w, u, s0, *, mode: str = "fused_recurrent",
     streams move to the kernel layout (B, H, T, N) in f32 and back."""
     chunked = _scan_mode(mode)
     if r.device.type == "cuda":
-        tr = lambda t: t.transpose(1, 2).float().contiguous()  # noqa: E731
-        out, s = _scan.wkv(tr(r), tr(k), tr(v), tr(w),
-                           u.float().contiguous(), s0.float().contiguous(),
-                           chunk=chunk if chunked else 0)
+        tr = lambda t: _scan_f32(t.transpose(1, 2))  # noqa: E731
+        out, s = _scan.wkv(tr(r), tr(k), tr(v), tr(w), _scan_f32(u),
+                           _scan_f32(s0), chunk=chunk if chunked else 0)
         return out.transpose(1, 2), s
     if r.device.type == "cpu":
         if chunked:
@@ -106,7 +112,7 @@ def ssd(x, b, c, dt, a, s0, *, mode: str = "fused_recurrent",
     both f32.  ``mode`` and ``chunk`` as in :func:`wkv`."""
     chunked = _scan_mode(mode)
     if x.device.type == "cuda":
-        f32 = lambda t: t.float().contiguous()  # noqa: E731
+        f32 = _scan_f32
         y, s = _scan.ssd(f32(x.transpose(1, 2)), f32(b), f32(c),
                          f32(dt.transpose(1, 2)), f32(a), f32(s0),
                          chunk=chunk if chunked else 0)

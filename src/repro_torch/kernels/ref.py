@@ -436,3 +436,118 @@ def ssd_chunk_phased(x, b, c, dt, a, s0, chunk: int = 64):
             y = y + torch.exp(carry[:, None] + Lq).float()[..., None] * cross
             ys.append(y[:, :nq])
     return torch.cat(ys, dim=1), s_final
+
+
+# ---------------------------------------------------------------------------
+# The fused kernels' decomposition, in plain PyTorch (used by the tests only:
+# it shows on the CPU that splitting a state over blocks and summing by
+# shuffle trees computes wkv_linear_scan / ssd_linear_scan)
+# ---------------------------------------------------------------------------
+
+#: lanes of a warp, rows j of S a ``wkv_fused`` warp holds, and the fewest
+#: blocks a fused call keeps (two for each of an H100's 132 SMs)
+WARP, FUSED_WARP_ROWS, FUSED_MIN_BLOCKS = 32, 16, 264
+
+
+def fused_per_thread(blocks_least: int, least: int, most: int) -> int:
+    """The float4s of state a fused kernel's thread holds (the CUDA
+    launchers' rule): the largest power of two from ``least`` to ``most``
+    that leaves the grid (``blocks_least`` blocks at ``least``) at least
+    :data:`FUSED_MIN_BLOCKS` blocks."""
+    r = least
+    while 2 * r <= most and blocks_least * least // (2 * r) >= \
+            FUSED_MIN_BLOCKS:
+        r *= 2
+    return r
+
+
+def _xor_tree(p):
+    """The sum over the last dim (a power of two of lanes) as an
+    xor-shuffle butterfly takes it: lanes l and l ^ (L/2) add first, then
+    l ^ (L/4), down to l ^ 1."""
+    while p.shape[-1] > 1:
+        half = p.shape[-1] // 2
+        p = p[..., :half] + p[..., half:]
+    return p[..., 0]
+
+
+def ssd_fused_tiled(x, b, c, dt, a, s0, rows: int | None = None):
+    """The CUDA ``ssd_fused`` kernel's decomposition of
+    :func:`ssd_linear_scan` (model layout in and out, f32): the rows p of
+    S in tiles of 8 ``rows`` (rows a thread; by default the launcher's
+    choice for these shapes), each a block that walks the sequence alone;
+    per step the decay exp(dt a) once per (b, h, t), S <- decay S +
+    (dt x_p) b, then y_p as each lane's sum of its 4 columns (N / 4 lanes
+    a row) and an xor tree over the row's lanes."""
+    x, b, c, dt = (t.float() for t in (x, b, c, dt))
+    a = a.float()
+    B, T, H, P = x.shape
+    N = b.shape[-1]
+    if rows is None:
+        rows = fused_per_thread(B * H * (P // 16), 2, min(8, P // 8))
+    ys, states = [], []
+    for p0 in range(0, P, 8 * rows):
+        tile = slice(p0, p0 + 8 * rows)
+        s = s0[:, :, tile].float()                            # (B,H,R,N)
+        yt = []
+        for t in range(T):
+            decay = torch.exp(dt[:, t] * a)                   # (B,H)
+            dx = dt[:, t, :, None] * x[:, t, :, tile]         # (B,H,R)
+            s = (decay[..., None, None] * s
+                 + dx[..., None] * b[:, t, None, None, :])
+            prod = (s * c[:, t, None, None, :]).unflatten(-1, (N // 4, 4))
+            lane = ((prod[..., 0] + prod[..., 1]) + prod[..., 2]) \
+                + prod[..., 3]                                # (B,H,R,N/4)
+            yt.append(_xor_tree(lane))
+        ys.append(torch.stack(yt, 1))                         # (B,T,H,R)
+        states.append(s)
+    return torch.cat(ys, -1), torch.cat(states, 2)
+
+
+def wkv_fused_tiled(r, k, v, w, u, s0, rows: int | None = None):
+    """The CUDA ``wkv_fused`` kernel's decomposition of
+    :func:`wkv_linear_scan` (model layout in and out, f32): the value
+    columns i of S in tiles of 8 ``rows`` (rows j of S a thread; by
+    default the launcher's choice for these shapes), each a block that
+    walks the sequence alone.  Per step: out_i = sum_j r_j S[j][i] as the
+    kernel sums it (each thread its rows jr + m N / rows in order, then a
+    tree over the 16 / rows lanes of a warp that share a column group,
+    lanes 16 apart first, and the warps' sums added in order), + bonus
+    v_i, the bonus sum_j r_j u_j k_j taken once per (b, h, t) (each of a
+    warp's 32 lanes sums j = lane, lane + 32, ..., then an xor tree over
+    the lanes); then S <- w_j S + k_j v_i."""
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()
+    B, T, H, N = r.shape
+    if rows is None:
+        rows = fused_per_thread(B * H * (N // 8), 1, min(4, N // 8))
+    lanes = FUSED_WARP_ROWS // rows
+    outs, states = [], []
+    for c0 in range(0, N, 8 * rows):
+        cols = slice(c0, c0 + 8 * rows)
+        s = s0[..., cols].float()                             # (B,H,N,C)
+        ot = []
+        for t in range(T):
+            ruk = torch.nn.functional.pad(r[:, t] * u * k[:, t],
+                                          (0, -N % WARP))
+            ruk = ruk.unflatten(-1, (-1, WARP))               # (B,H,m,32)
+            lane = ruk[..., 0, :]
+            for m in range(1, ruk.shape[-2]):
+                lane = lane + ruk[..., m, :]
+            bonus = _xor_tree(lane)                           # (B,H)
+            prod = (r[:, t, :, :, None] * s).unflatten(
+                2, (rows, N // rows))                         # (B,H,m,jr,C)
+            mine = prod[:, :, 0]
+            for m in range(1, rows):
+                mine = mine + prod[:, :, m]                   # (B,H,jr,C)
+            warps = mine.unflatten(2, (-1, lanes))            # (B,H,W,l,C)
+            wsum = _xor_tree(warps.movedim(3, -1))            # (B,H,W,C)
+            o = wsum[:, :, 0]
+            for q in range(1, wsum.shape[2]):
+                o = o + wsum[:, :, q]
+            vt = v[:, t, :, cols]                             # (B,H,C)
+            ot.append(o + bonus[..., None] * vt)
+            s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * vt[:, :, None]
+        outs.append(torch.stack(ot, 1))                       # (B,T,H,C)
+        states.append(s)
+    return torch.cat(outs, -1), torch.cat(states, -1)

@@ -258,13 +258,83 @@ def test_kernels_per_call(T, chunk, want):
     assert tls.kernels_per_call(T, chunk) == want
 
 
+# -- the fused kernels' decomposition, mirrored in plain PyTorch ------------
+
+_TILED = {"wkv": (ref.wkv_fused_tiled, ref.wkv_linear_scan, jops.wkv),
+          "ssd": (ref.ssd_fused_tiled, ref.ssd_linear_scan, jops.ssd)}
+
+
+@pytest.mark.parametrize("kind", ["wkv", "ssd"])
+@pytest.mark.parametrize("width", [16, 64])
+@pytest.mark.parametrize("T", [1, 3, 100])
+@pytest.mark.parametrize("B", [1, 3])
+def test_fused_tiled_mirror_matches_plain_and_pallas(kind, B, T, width):
+    """``ref.wkv_fused_tiled`` / ``ssd_fused_tiled`` (the CUDA fused
+    kernels' row or column tiles, per-lane float4 sums, xor-shuffle trees,
+    cross-warp sum and once-a-step decay or bonus, in plain PyTorch), at
+    every tile width the launchers take, against the plain recurrence and
+    the JAX package's fused Pallas kernel in interpret mode (time tile bt
+    dividing T), at widths 16 and 64 (N, and P = N for SSD)."""
+    seed = 11 * T + B + width
+    arrs = (_wkv_np(seed, B, T, 2, width) if kind == "wkv"
+            else _ssd_np(seed, B, T, 2, width, width))
+    mirror, plain, jfn = _TILED[kind]
+    want = plain(*_t(arrs))
+    bt = T if T < 20 else 20
+    pallas = jfn(*_j(arrs), bt=bt, mode="fused_recurrent")
+    # every tile the launchers take: a thread's rows of S (WKV 1, 2, 4;
+    # SSD 2, 4, 8), up to the width
+    most = min(4, width // 8) if kind == "wkv" else min(8, width // 8)
+    for rows in ((1, 2, 4) if kind == "wkv" else (2, 4, 8)):
+        if rows <= most:
+            got = mirror(*_t(arrs), rows=rows)
+            _close(got, want)
+            _close(got, pallas)
+
+
+@pytest.mark.parametrize("kind,B,H,width,want", [
+    ("wkv", 1, 40, 64, 1), ("wkv", 2, 40, 64, 2), ("wkv", 8, 40, 64, 4),
+    ("wkv", 64, 40, 16, 2), ("ssd", 1, 80, 64, 2), ("ssd", 2, 80, 64, 4),
+    ("ssd", 8, 80, 64, 8), ("ssd", 64, 80, 16, 2)])
+def test_fused_tile_choice(kind, B, H, width, want):
+    """The fused launchers' state a thread (``ref.fused_per_thread``, as
+    the CUDA launchers choose it): at rwkv6-3b's and zamba2-2.7b's widths a
+    batch-1 call keeps 320 blocks (WKV 8-column, SSD 16-row tiles), a
+    batch-8 call 640 (32 columns, 64 rows); never past the width."""
+    if kind == "wkv":
+        got = ref.fused_per_thread(B * H * (width // 8), 1,
+                                   min(4, width // 8))
+        blocks = B * H * width // (8 * got)
+    else:
+        got = ref.fused_per_thread(B * H * (width // 16), 2,
+                                   min(8, width // 8))
+        blocks = B * H * width // (8 * got)
+    assert got == want
+    assert blocks >= ref.FUSED_MIN_BLOCKS or got == (1 if kind == "wkv"
+                                                     else 2)
+
+
+def test_scan_inputs_made_aligned_for_the_kernels():
+    """``ops`` hands the scan kernels 16-byte aligned f32 tensors (the
+    kernels move rows as 16-byte copies): an aligned contiguous f32 view
+    passes as it is, a misaligned one is copied, other dtypes converted."""
+    base = torch.arange(20, dtype=torch.float32)
+    assert ops._scan_f32(base) is base
+    view = base[1:17]
+    assert view.data_ptr() % 16 != 0
+    got = ops._scan_f32(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    half = ops._scan_f32(base.bfloat16()[4:12])
+    assert half.dtype == torch.float32 and half.data_ptr() % 16 == 0
+
+
 # -- the CUDA kernels against their plain versions (skip without a card) ----
 
 _GPU_CASES = {
-    "wkv_fused": [(8, 1, 0), (8, 3, 0), (1, 300, 0)],
+    "wkv_fused": [(8, 1, 0), (1, 1, 0), (8, 3, 0), (1, 300, 0)],
     "wkv_chunk": [(8, 3, 3), (1, 512, 64), (1, 300, 64), (1, 512, 256),
                   (1, 64, 64), (1, 513, 64)],
-    "ssd_fused": [(8, 1, 0), (8, 3, 0), (1, 300, 0)],
+    "ssd_fused": [(8, 1, 0), (1, 1, 0), (8, 3, 0), (1, 300, 0)],
     "ssd_chunk": [(8, 3, 3), (1, 512, 64), (1, 512, 256), (1, 300, 64),
                   (1, 64, 64), (1, 513, 64)],
 }
@@ -306,6 +376,35 @@ def test_cuda_scan_kernel_matches_plain_version(name):
             assert g.shape == w.shape and torch.isfinite(g).all()
             assert ref.within_tol(g, w, torch.float32), (name, B, T, chunk)
     assert LAUNCHES[name] == before + len(_GPU_CASES[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["wkv", "ssd"])
+def test_cuda_fused_scan_kernels_at_width_16(kind):
+    """The fused kernels' width-16 instantiation (``linear_scan.DIMS``;
+    SSD at P = N = 16 and at P = 64, N = 16) against the plain recurrence,
+    at T 1, at T 40 (three 16-step stages) and at 64 rows of 5 heads (the
+    wider tiles: WKV 16 columns, SSD 16 and 64 rows): output and final
+    state within ``ref.KERNEL_TOL``."""
+    _needs_card()
+    for B, T, P in [(3, 1, 16), (3, 40, 16), (2, 40, 64), (64, 3, 16),
+                    (64, 3, 64)]:
+        if kind == "wkv":
+            if P != 16:
+                continue
+            arrs = [torch.from_numpy(a).cuda()
+                    for a in _wkv_np(T + B, B, T, 5, 16)]
+            got = ops.wkv(*arrs)
+            want = ref.wkv_linear_scan(*arrs)
+        else:
+            arrs = [torch.from_numpy(a).cuda()
+                    for a in _ssd_np(T + B, B, T, 5, P, 16)]
+            got = ops.ssd(*arrs)
+            want = ref.ssd_linear_scan(*arrs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.isfinite(g).all()
+            assert ref.within_tol(g, w, torch.float32), (kind, B, T, P)
 
 
 @pytest.mark.gpu
