@@ -56,17 +56,29 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    serve driven by that tree.  Every request must finish, no page may
    leak, the corpus must fill, a retrain must run, the tree must replan,
    and the paged kernel's launches must equal decode steps x layers.
+   On the card the serves' decode steps and prefill chunks replay as CUDA
+   graphs, whose replays add their captured launches to the counts.
+   ``[graph]``: the paged decode step at S 1 and 3 and the prefill chunk
+   (C 256), each replayed against its step function from the same random
+   pages: equal tokens and finite flags, every page but the null sink
+   equal bit for bit; then the host time a step of each (eager, and the
+   replay with its input copy) and the replay's device time.
 4. rwkv6-3b and zamba2-2.7b at full width: parity in f32 (one prefill and
    one decode step through the scan kernels against the plain scans:
    logits and greedy tokens), then the slot pool (paged='off') in bf16,
    once with scan_mode auto at spec_depth 0 and once with scan_mode chunk
    at spec_depth 2.  Every request must finish, both of the family's scan
    kernels launched, and their launches equal to the model calls (pool
-   steps, prefills, re-advances) x layers.  (The slot pool has no
+   steps, replayed as CUDA graphs; prefills and re-advances, eager) x
+   layers.  (The slot pool has no
    safe-plan fallback to gate on: as in the JAX engine, only the paged
-   pool has one.)  The scan calls of both serves are counted by (kernel,
-   B, T, chunk); after both models each scan kernel is timed at every
-   such shape, and launches x (time - bound) is summed over them.
+   pool has one.)  ``[graph]``: the slot-pool decode step with its pool
+   update at spec_depth 0 and 2 against its step function, from the same
+   random state, as for the paged step.  The scan calls of both serves
+   are counted by (kernel, B, T, chunk) from the wrappers' shape tally
+   (``kernels.LAUNCH_SHAPES``, which replays add to); after both models
+   each scan kernel is timed at every such shape, and launches x (time -
+   bound) is summed over them.
 
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits.
@@ -661,28 +673,12 @@ def scan_host_phase(torch, records: dict) -> None:
             f"layout): host {us[0]:.2f} / {us[1]:.2f} us a call")
 
 
-@contextlib.contextmanager
-def scan_shape_counts():
-    """Count the scan wrappers' CUDA calls by (kernel, B, T, chunk) while
-    the block runs: the shapes the serves really launch.  (The wrappers'
-    own LAUNCHES count calls, not shapes.)"""
-    from repro_torch.kernels import linear_scan as ls
-    counts: dict = {}
-    saved = ls.wkv, ls.ssd
-
-    def counting(fn, family):
-        def call(*args, chunk=0):
-            B, _, T = args[0].shape[:3]
-            key = (f"{family}_{'chunk' if chunk else 'fused'}", B, T, chunk)
-            counts[key] = counts.get(key, 0) + 1
-            return fn(*args, chunk=chunk)
-        return call
-
-    ls.wkv, ls.ssd = counting(saved[0], "wkv"), counting(saved[1], "ssd")
-    try:
-        yield counts
-    finally:
-        ls.wkv, ls.ssd = saved
+def launch_shapes(names) -> dict:
+    """The launches so far of the kernels ``names`` by (kernel, B, T,
+    chunk): the wrappers' own shape tally, to which every replay of a CUDA
+    graph adds the launches it captured."""
+    from repro_torch.kernels import LAUNCH_SHAPES
+    return {k: n for k, n in LAUNCH_SHAPES.items() if k[0] in names}
 
 
 def serve_shape_phase(torch, counts: dict, records: dict) -> None:
@@ -1125,6 +1121,8 @@ def serve_phase(torch, model, params, dev, serve=SERVE) -> dict:
         reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=int(g))
                 for i, (p, g) in enumerate(zip(prompts, gens))]
         before = LAUNCHES["paged_attention_mq"]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         res = eng.serve(reqs)
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -1141,7 +1139,7 @@ def serve_phase(torch, model, params, dev, serve=SERVE) -> dict:
             f"{pool.hbm_bytes()/2**20:.1f} MiB (high-water "
             f"{pool.high_water_bytes()/2**20:.1f} MiB), fallbacks="
             f"{res['health']['fallbacks']}, leaked pages="
-            f"{res['page_leaks']}")
+            f"{res['page_leaks']}, {graphs_line(eng)}")
         check(all(r.state is RequestState.DONE for r in reqs),
               f"not all requests DONE: {[r.state.value for r in reqs]}")
         check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
@@ -1251,10 +1249,13 @@ def recurrent_serve_phase(torch, model, params, dev, kernels, shape_counts,
         reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=int(g))
                 for i, (p, g) in enumerate(zip(prompts, gens))]
         before = {k: LAUNCHES[k] for k in kernels}
-        with scan_shape_counts() as counts:
-            res = eng.serve(reqs)
-        for key, n in counts.items():
-            shape_counts[key] = shape_counts.get(key, 0) + n
+        shapes0 = launch_shapes(kernels)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        res = eng.serve(reqs)
+        for key, n in launch_shapes(kernels).items():
+            shape_counts[key] = (shape_counts.get(key, 0) + n
+                                 - shapes0.get(key, 0))
         if dev.type == "cuda":
             torch.cuda.synchronize()
         launched = {k: LAUNCHES[k] - before[k] for k in kernels}
@@ -1273,7 +1274,7 @@ def recurrent_serve_phase(torch, model, params, dev, kernels, shape_counts,
             f"{res['spec']['tokens_per_step']:.2f}, launches={launched} "
             f"(model calls {calls} x {cfg.n_layers} layers = "
             f"{calls * cfg.n_layers}), pool {mem['hbm_bytes']/2**20:.1f} "
-            f"MiB")
+            f"MiB, {graphs_line(eng)}")
         check(all(r.state is RequestState.DONE for r in reqs),
               f"not all requests DONE: {[r.state.value for r in reqs]}")
         check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
@@ -1313,9 +1314,231 @@ def recurrent_model_phase(torch, arch, kernels, dev, shape_counts) -> dict:
     torch.cuda.empty_cache()
     launches = recurrent_serve_phase(torch, model, params, dev, kernels,
                                      shape_counts)
+    slot_graph_phase(torch, model, params, dev)
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# graph phase: each captured step against its step function
+# ---------------------------------------------------------------------------
+
+
+def host_us_each(torch, fn, calls: int) -> float:
+    """The host's wall time of one call of ``fn`` on an idle card, in
+    microseconds: each call starts after a synchronisation and is timed
+    to its return (what it enqueues, not what the card then takes)."""
+    fn()
+    total = 0.0
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / calls * 1e6
+
+
+def _fill(torch, tree, seed, std, pos):
+    """Every leaf of a pool from a seeded generator on the card: floats
+    N(0, std^2), integer leaves (slot positions) uniform in ``pos``."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for t in L.tree_leaves(tree):
+        if t.dtype.is_floating_point:
+            t.normal_(0.0, std, generator=gen)
+        else:
+            t.random_(pos[0], pos[1], generator=gen)
+
+
+def graph_check(torch, eng, label, live, cut, eager, graphed) -> dict:
+    """Run ``eager`` (the step function) and ``graphed`` (its graph's
+    replay, captured at the first call) from the same state of ``live``
+    (the pool's tree; ``cut`` selects what is compared of each leaf):
+    tokens, finite flags and state must be equal bit for bit, twice (the
+    capture's call, then a plain replay).  Then the host time a step of
+    each, the replay's device time, and the MiB the engine's graph pool
+    reserved."""
+    from repro_torch.models import layers as L
+    leaves = L.tree_leaves(live)
+    start = [t.clone() for t in leaves]
+    for run in range(2):
+        want = eager()
+        want_state = [cut(t).clone() for t in leaves]
+        for t, s0 in zip(leaves, start):
+            t.copy_(s0)
+        got = graphed()
+        torch.cuda.synchronize()
+        if want is not None:
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"[graph] {label}: replay tokens/finite != step function")
+        check(all(torch.equal(cut(t), w) for t, w in zip(leaves, want_state)),
+              f"[graph] {label}: state after replay {run} != step function")
+        for t, s0 in zip(leaves, start):
+            t.copy_(s0)
+    del start, want_state
+    n_kernels, kernel_ms = replay_kernels(torch, graphed)
+    rec = {"step": label,
+           "eager_host_us": host_us_each(torch, eager, 10),
+           "graph_host_us": host_us_each(torch, graphed, 100),
+           "eager_ms": time_ms(torch, eager, iters=5),
+           "graph_ms": time_ms(torch, graphed, iters=20),
+           "graphs": len(eng._graphs),
+           "pool_mib": sum(g.pool_bytes for g in eng._graphs.values())
+           / 2**20,
+           "launches": next(iter(eng._graphs.values())).launches,
+           "kernels": n_kernels, "kernel_ms": kernel_ms}
+    log(f"[graph] {label}: replay == step function (tokens, finite, state "
+        f"bit for bit, twice); host {rec['eager_host_us']:.1f} us a step "
+        f"eager, {rec['graph_host_us']:.1f} us replayed (copies included); "
+        f"device {rec['graph_ms']:.4f} ms a replay (eager, host-bound: "
+        f"{rec['eager_ms']:.4f} ms); graph pool {rec['pool_mib']:.1f} MiB; "
+        f"launches a replay {rec['launches']}; {n_kernels} CUDA kernels and "
+        f"copies a replay, {kernel_ms:.4f} ms of device time summed over "
+        f"them (torch.profiler)")
+    return rec
+
+
+def replay_kernels(torch, graphed) -> tuple:
+    """The CUDA kernels and copies one call of ``graphed`` runs on the
+    card, and their device times summed (torch.profiler): what a replay's
+    device time is made of."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.regions import REGION_PREFIX
+    from repro_torch.serve.engine import SPAN_PREFIX
+    graphed()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graphed()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith((REGION_PREFIX, SPAN_PREFIX))]
+    return len(evs), sum(e.time_range.elapsed_us() for e in evs) / 1e3
+
+
+def graphs_line(eng) -> str:
+    """What an engine captured: its graphs, the MiB their pool reserved,
+    and the launches of their warm-ups (taken out of the counts)."""
+    warm: dict = {}
+    for g in eng._graphs.values():
+        for k, n in g.warmup_launches.items():
+            warm[k] = warm.get(k, 0) + n
+    return (f"graphs captured={len(eng._graphs)} (pool "
+            f"{sum(g.pool_bytes for g in eng._graphs.values())/2**20:.1f} "
+            f"MiB, warm-up launches {warm}), device memory at peak "
+            f"{peak_mib()}")
+
+
+def peak_mib() -> str:
+    """Device memory at peak since the last reset: allocated by tensors,
+    and reserved by the allocator (the graphs' pool included)."""
+    import torch
+    return (f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+            f"allocated, {torch.cuda.max_memory_reserved() / 2**20:.1f} MiB "
+            f"reserved")
+
+
+def paged_graph_phase(torch, model, params, dev, serve=SERVE) -> list:
+    """[graph] The paged decode step at S = 1 and 3 (7 slots live on
+    ragged lengths up to the block table's reach, one parked) and the
+    prefill chunk (256 tokens from position 256 of one slot), on random
+    pages: each replay against its step function."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = model.cfg
+    rng = np.random.default_rng(12)
+    recs = []
+    for depth in (0, 2, "chunk"):
+        eng = Engine(model, params, plan=_plan("paged"), device=dev,
+                     serve_cfg=ServeConfig(
+                         max_len=serve["max_len"],
+                         max_slots=serve["max_slots"],
+                         page_size=serve["page_size"],
+                         prefill_chunk=serve["prefill_chunk"],
+                         spec_depth=0 if depth == "chunk" else depth))
+        eng._ensure_pool()
+        pool = eng._pool
+        pages = pool.pages
+        _fill(torch, pages, 13, 0.5, None)
+        B, MP = pool.n_slots, pool.max_pages_per_slot
+        bt = (1 + np.arange(B * MP, dtype=np.int32)).reshape(B, MP)
+        if depth == "chunk":
+            C, base = serve["prefill_chunk"], serve["prefill_chunk"]
+            pool.block_tables[2] = bt[2]
+            toks = rng.integers(0, cfg.vocab_size, C).astype(np.int32)
+
+            def eager():
+                model.paged_prefill_chunk(
+                    eng.params, pages,
+                    torch.as_tensor(toks[None], device=dev),
+                    torch.as_tensor(bt[2], device=dev), base, eng.plan)
+
+            def graphed():
+                eng._paged_prefill(toks, 2, base)
+            label = f"paged prefill chunk C={C}"
+        else:
+            S = depth + 1
+            lengths = np.array(_ragged(S), np.int32)
+            act = lengths > 0
+            bt[~act] = 0
+            toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+            def eager():
+                return eng._pool_step(eng.params, pages, *(
+                    torch.as_tensor(a, device=dev)
+                    for a in (toks, bt, lengths, act)), None)
+
+            def graphed():
+                return eng._paged_decode(toks, bt, lengths, act, None)
+            label = f"paged decode S={S}"
+        # page 0 is the null sink: parked rows and padding write it in no
+        # fixed order, and nothing reads it unmasked
+        recs.append(graph_check(torch, eng, f"{cfg.name} {label}", pages,
+                                lambda t: t[1:], eager, graphed))
+        del eng, pool, pages
+        torch.cuda.empty_cache()
+    return recs
+
+
+def slot_graph_phase(torch, model, params, dev,
+                     serve=RECURRENT_SERVE) -> list:
+    """[graph] The slot-pool decode step with its pool update, at
+    spec_depth 0 (scan_mode auto: the fused scan) and 2 (scan_mode chunk:
+    the chunk scan at (8, 3, 3)), 7 slots live and one parked, on random
+    state: each replay against its step function plus the update."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = model.cfg
+    rng = np.random.default_rng(14)
+    recs = []
+    for mode, depth in (("auto", 0), ("chunk", 2)):
+        eng = Engine(model, params, device=dev, serve_cfg=ServeConfig(
+            max_len=serve["max_len"], max_slots=serve["max_slots"],
+            paged="off", scan_mode=mode, spec_depth=depth))
+        eng._ensure_pool()
+        pool = eng._pool
+        _fill(torch, pool.pool, 15, 0.1, (64, 512))
+        B = pool.n_slots
+        toks = rng.integers(0, cfg.vocab_size, (B, depth + 1))
+        toks = toks.astype(np.int32)
+        act = np.arange(B) != 5
+
+        def eager():
+            out, finite, caches = eng._pool_step(
+                eng.params, pool.pool, torch.as_tensor(toks, device=dev),
+                torch.as_tensor(act, device=dev), None)
+            pool.update(caches)
+            return out, finite
+
+        def graphed():
+            return eng._slot_decode(toks, act, None)
+        recs.append(graph_check(
+            torch, eng, f"{cfg.name} slot decode scan_mode={mode} "
+            f"spec_depth={depth}", pool.pool, lambda t: t, eager, graphed))
+        del eng, pool
+        torch.cuda.empty_cache()
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -1430,6 +1653,7 @@ def main() -> int:
     launches = serve_phase(torch, model, params, dev)
     record["launches"] = launches["paged_attention_mq"]
     loop_phase(torch, model, params, dev)
+    paged_graph_phase(torch, model, params, dev)
     del model, params
     torch.cuda.empty_cache()
 

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, cuda_build
+from repro_torch.kernels import LAUNCHES, count_launch, cuda_build
 
 NAME = "flash_attention"
 LAUNCHES.setdefault(NAME, 0)
@@ -129,7 +129,7 @@ def _launch(q, k, v, out, B, H, layout, causal, window, bq, bk):
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({rc})")
-    LAUNCHES[NAME] += 1
+    count_launch(NAME, B, H, S, Sk, D)
     return out
 
 

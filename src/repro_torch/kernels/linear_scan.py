@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, cuda_build
+from repro_torch.kernels import LAUNCHES, count_launch, cuda_build
 
 NAMES = ("wkv_fused", "wkv_chunk", "ssd_fused", "ssd_chunk")
 for _name in NAMES:
@@ -99,7 +99,10 @@ def _check(tensors: dict, shapes: dict) -> torch.device:
     return dev
 
 
-def _launch(name: str, fn: str, dev: torch.device, *args) -> None:
+def _launch(name: str, fn: str, dev: torch.device, shape: tuple,
+            *args) -> None:
+    """Launch ``fn`` on the current stream and count it at ``shape``, the
+    call's (B, T, chunk)."""
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -107,7 +110,7 @@ def _launch(name: str, fn: str, dev: torch.device, *args) -> None:
     if rc != 0:
         msg = lib.linear_scan_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
-    LAUNCHES[name] += 1
+    count_launch(name, *shape)
 
 
 def _check_dim(what: str, n: int) -> None:
@@ -177,10 +180,11 @@ def wkv(r, k, v, w, u, s0, *, chunk: int = 0):
             s_out.copy_(s0)
             return out, s_out
         ws, dec = _chunk_workspace(dev, B, H, T, chunk, N * N, N)
-        _launch("wkv_chunk", "wkv_chunk_launch", dev, *ptrs,
+        _launch("wkv_chunk", "wkv_chunk_launch", dev, (B, T, chunk), *ptrs,
                 _ptr(ws), _ptr(dec), B, H, T, N, chunk)
     else:
-        _launch("wkv_fused", "wkv_fused_launch", dev, *ptrs, B, H, T, N)
+        _launch("wkv_fused", "wkv_fused_launch", dev, (B, T, 0), *ptrs,
+                B, H, T, N)
     return out, s_out
 
 
@@ -206,8 +210,9 @@ def ssd(x, b, c, dt, a, s0, *, chunk: int = 0):
             s_out.copy_(s0)
             return y, s_out
         ws, dec = _chunk_workspace(dev, B, H, T, chunk, P * N, 1)
-        _launch("ssd_chunk", "ssd_chunk_launch", dev, *ptrs,
+        _launch("ssd_chunk", "ssd_chunk_launch", dev, (B, T, chunk), *ptrs,
                 _ptr(ws), _ptr(dec), B, H, T, P, N, chunk)
     else:
-        _launch("ssd_fused", "ssd_fused_launch", dev, *ptrs, B, H, T, P, N)
+        _launch("ssd_fused", "ssd_fused_launch", dev, (B, T, 0), *ptrs,
+                B, H, T, P, N)
     return y, s_out

@@ -31,7 +31,8 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, cuda_build
+from repro_torch.kernels import (LAUNCHES, WORKSPACES, count_launch,
+                                 cuda_build)
 
 NAME = "paged_attention_mq"
 LAUNCHES.setdefault(NAME, 0)
@@ -149,6 +150,7 @@ _n_sm: dict[int, int] = {}
 #: f32 workspace of the splits' partial states, grown as calls need
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
 _partials: dict[tuple[int, int], torch.Tensor] = {}
+WORKSPACES.extend((_tickets, _partials))
 
 
 def _library() -> ctypes.CDLL:
@@ -273,5 +275,5 @@ def paged_attention_mq(q: torch.Tensor, k_pages: torch.Tensor,
     if rc != 0:
         msg = lib.paged_attention_error_string(rc).decode()
         raise RuntimeError(f"paged_attention_mq launch failed: {msg} ({rc})")
-    LAUNCHES[NAME] += 1
+    count_launch(NAME, B, S)
     return out

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, cuda_build
+from repro_torch.kernels import LAUNCHES, count_launch, cuda_build
 
 NAME = "tuned_matmul"
 LAUNCHES.setdefault(NAME, 0)
@@ -124,5 +124,5 @@ def tuned_matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
     if rc != 0:
         msg = lib.tuned_matmul_error_string(rc).decode()
         raise RuntimeError(f"tuned_matmul launch failed: {msg} ({rc})")
-    LAUNCHES[NAME] += 1
+    count_launch(NAME, M, N, K)
     return out

@@ -54,7 +54,7 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.core.policy import RegionConfig, RegionPlan
 from repro_torch.models import model as model_mod
-from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.serve.engine import SPAN_PREFIX, Engine, ServeConfig
 from repro_torch.serve.scheduler import Request, RequestState, summarize
 
 
@@ -109,7 +109,9 @@ def profile_serve(engine: Engine, reqs: list[Request],
                   top: int = 12) -> dict:
     """Serve ``reqs`` under ``torch.profiler`` (CPU and, on a GPU, CUDA
     activity) and print the device's busy share of the wall time, the
-    device kernels that took it and the host ops that issued them."""
+    device kernels that took it, the memory at peak, the host's time by
+    the serve loop's spans (``serve.*``: prefill, decode step with its
+    readback, re-advance) and the host ops that issued them."""
     import collections
     import time
 
@@ -121,6 +123,7 @@ def profile_serve(engine: Engine, reqs: list[Request],
     if on_gpu:
         acts.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     with profile(activities=acts) as prof:
         # the serve's own span: the profiler's start on entering the block
         # and its stop and event processing on leaving it are not part of it
@@ -130,11 +133,12 @@ def profile_serve(engine: Engine, reqs: list[Request],
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if on_gpu:
-        # device-side kernels and copies (region annotations excluded):
-        # busy time is the union of their intervals
+        # device-side kernels and copies (the device-side copies of the
+        # region and span annotations excluded): busy time is the union
+        # of their intervals
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(REGION_PREFIX)]
+               and not e.name.startswith((REGION_PREFIX, SPAN_PREFIX))]
         busy, end = 0.0, float("-inf")
         for a, b in sorted((e.time_range.start, e.time_range.end)
                            for e in dev):
@@ -144,8 +148,8 @@ def profile_serve(engine: Engine, reqs: list[Request],
         busy /= 1e6
         print(f"[profile] wall {wall:.3f} s (profiled), device busy "
               f"{busy:.3f} s = {100 * busy / wall:.1f}%, idle "
-              f"{100 * (1 - busy / wall):.1f}% "
-              f"[{torch.cuda.get_device_name(0)}]")
+              f"{100 * (1 - busy / wall):.1f}%, {len(dev)} kernels and "
+              f"copies [{torch.cuda.get_device_name(0)}]")
         by_name: dict = collections.defaultdict(lambda: [0.0, 0])
         for e in dev:
             by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
@@ -153,6 +157,24 @@ def profile_serve(engine: Engine, reqs: list[Request],
         for name, (ms, n) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:top]:
             print(f"[profile] device {ms:10.3f} ms {n:7d}x  {name[:90]}")
+        pool_mib = sum(g.pool_bytes
+                       for g in engine._graphs.values()) / 2**20
+        print(f"[profile] device memory at peak: "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+              f"allocated, {torch.cuda.max_memory_reserved() / 2**20:.1f} "
+              f"MiB reserved; graphs {len(engine._graphs)}, their pool "
+              f"{pool_mib:.1f} MiB")
+    # the host's time by the serve loop's spans (each with what it calls),
+    # and the rest of the loop (scheduling, drafts, acceptance, sleeps)
+    spans = [e for e in prof.key_averages()
+             if e.key.startswith(SPAN_PREFIX)
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(spans, key=lambda e: -e.cpu_time_total):
+        print(f"[profile] host {e.key:16s} {e.cpu_time_total / 1e3:10.3f} "
+              f"ms {e.count:6d}x ({e.cpu_time_total / 1e3 / e.count:.3f} "
+              f"ms each)")
+    rest = wall - sum(e.cpu_time_total for e in spans) / 1e6
+    print(f"[profile] host rest of the loop {rest * 1e3:10.3f} ms")
     print(prof.key_averages().table(sort_by="self_cpu_time_total",
                                     row_limit=top))
     return res

@@ -51,10 +51,22 @@ FAILED past ``max_retries``; a window of faults walks the health ladder
 HEALTHY -> DEGRADED -> SHEDDING, and a degraded paged engine pins the safe
 plan (no speculation, the gather attention path).
 
-Steps run eagerly; the step cache is keyed on the resolved knobs, as in
-the JAX package.  Not ported yet, and raising ``NotImplementedError`` when
-asked for: telemetry (ROADMAP queue 1 item 9) and a tensor-parallel
-degree above 1 after clamping to the devices (item 14).
+**Compiled steps**: the step cache is keyed on the resolved knobs, as in
+the JAX package, and on ``cuda`` the three hot steps run as CUDA graphs
+(:mod:`repro_torch.serve.graphs`), the counterpart of the JAX package's
+``jax.jit(...).compile()``: the paged decode step (one graph per step-cache
+key, i.e. per resolved knobs and S = D+1), the paged prefill chunk (one
+graph per chunk width, ``prefill_chunk`` > 0, ``base`` a device scalar) and
+the slot-pool decode step with its pool update.  A graph is captured at
+its key's first use, also mid-serve after a replan or the safe-plan
+fallback, without touching live state; a failed capture raises.  At
+``temperature`` > 0 the graph ends at the guarded logits and the draw runs
+after it, from the engine's generator.  Whole-prompt prefill, slot
+prefills and re-advances, and everything on the CPU run eagerly; the
+counters (meta device) call the step functions directly.  Not ported yet,
+and raising ``NotImplementedError`` when asked for: telemetry (ROADMAP
+queue 1 item 9) and a tensor-parallel degree above 1 after clamping to the
+devices (item 14).
 """
 from __future__ import annotations
 
@@ -75,6 +87,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.model import Model
 from repro_torch.serve.cache import PagedKVPool, SlotKVPool, pages_for
 from repro_torch.serve.faults import FaultInjector
+from repro_torch.serve.graphs import StaticInputs, StepGraph
 from repro_torch.serve.health import HealthMonitor, HealthPolicy
 from repro_torch.serve.memory import MemoryGovernor, MemoryPolicy
 from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
@@ -199,6 +212,12 @@ def draft_ngram(history: np.ndarray, depth: int, *, max_ngram: int = 3,
     return out
 
 
+#: the serve loop's host spans (prefill, decode step with its readback,
+#: re-advance), labelled for ``torch.profiler`` under this prefix
+SPAN_PREFIX = "serve."
+_span = torch.profiler.record_function
+
+
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item "
@@ -247,6 +266,9 @@ class Engine:
         self._pool_step = None
         self._spec_depth = 0                        # depth of _pool_step
         self._pool_rc = None                        # counters of base step
+        self._graphs: dict = {}                     # step or (kind, width)
+                                                    # -> StepGraph (cuda)
+        self._graph_pool = None                     # their shared memory
         self._load_bucket: Optional[int] = None
         self.decisions_log: list = []
 
@@ -615,6 +637,39 @@ class Engine:
         tok = sample_rows(logits, gen, temp)
         return torch.where(active, tok, torch.zeros_like(tok))
 
+    @staticmethod
+    def _guard(logits: torch.Tensor, active: torch.Tensor):
+        """The always-on health guard of a pool step over its (B, S, V)
+        logits: the flat f32 rows (B*S, V), each row's slot activity, and a
+        per-slot ``finite`` flag, False when any of the slot's S rows holds
+        a NaN/inf (inactive slots forced healthy)."""
+        B, S, V = logits.shape
+        flat = logits.float().reshape(B * S, V)
+        act = active[:, None].expand(B, S).reshape(B * S)
+        finite = (torch.isfinite(flat).all(dim=-1).reshape(B, S)
+                  .all(dim=-1) | ~active)
+        return flat, act, finite
+
+    def _draw(self, flat, act, finite, gen):
+        """The guarded rows' masked draw -> ``(tokens (B, S), finite)``."""
+        toks = self._sample_pool(flat, act, gen, self.cfg.temperature)
+        return toks.reshape(finite.shape[0], -1), finite
+
+    def _sampled(self, forward):
+        """The pool step made of ``forward`` — the model and the guard,
+        returning ``(flat, act, finite, *rest)`` — and the draw: the step
+        takes ``forward``'s arguments and a generator and returns
+        ``(tokens (B, S), finite, *rest)``.  ``step.forward`` keeps the
+        part before the draw: a CUDA graph of a sampling step ends there
+        and the draw runs after the replay."""
+        def step(*args):
+            *args, gen = args
+            flat, act, finite, *rest = forward(*args)
+            return (*self._draw(flat, act, finite, gen), *rest)
+
+        step.forward = forward
+        return step
+
     def _build_pool_step(self, plan: RegionPlan):
         """One decode(+verify)+sample step over the whole slot pool: the
         model's ``decode_step`` batched over the slot axis, each slot at its
@@ -627,21 +682,15 @@ class Engine:
         paged step (inactive slots forced healthy).  Returns (step, D,
         tp=1); the step returns ``(tokens (B, S), finite (B,), caches)``,
         the caches to be copied into the pool."""
-        model, temp = self.model, self.cfg.temperature
+        model = self.model
         depth = self.spec_depth_for(plan)
         splan = self._plan_with_scan_mode(plan, self.scan_mode_for(plan))
 
-        def step(params, pool, tokens, active, gen):
+        def forward(params, pool, tokens, active):
             logits, caches = model.decode(params, pool, tokens, splan)
-            B, S, V = logits.shape
-            flat = logits.float().reshape(B * S, V)
-            act = active.repeat_interleave(S)
-            finite = (torch.isfinite(flat).all(dim=-1).reshape(B, S)
-                      .all(dim=-1) | ~active)
-            toks = self._sample_pool(flat, act, gen, temp).reshape(B, S)
-            return toks, finite, caches
+            return (*self._guard(logits, active), caches)
 
-        return step, depth, 1
+        return self._sampled(forward), depth, 1
 
     def _slot_advance(self, cache, tokens: np.ndarray, mode: str):
         """Fold ``tokens`` into one request's single-slot cache (logits
@@ -707,22 +756,121 @@ class Engine:
         page and are forced healthy.  Returns (step, D, tp); the step
         returns ``(tokens (B, S) int32, finite (B,) bool)`` and writes the
         pool's pages in place."""
-        model, temp = self.model, self.cfg.temperature
+        model = self.model
         depth = self.spec_depth_for(plan)
         tp = self.tp_for(plan)
 
-        def step(params, pages, tokens, block_tables, lengths, active, gen):
+        def forward(params, pages, tokens, block_tables, lengths, active):
             logits, _ = model.paged_decode(params, pages, tokens,
                                            block_tables, lengths, plan)
-            B, S, V = logits.shape
-            flat = logits.float().reshape(B * S, V)
-            act = active.repeat_interleave(S)
-            finite = (torch.isfinite(flat).all(dim=-1).reshape(B, S)
-                      .all(dim=-1) | ~active)
-            toks = self._sample_pool(flat, act, gen, temp).reshape(B, S)
-            return toks, finite
+            return self._guard(logits, active)
 
-        return step, depth, tp
+        return self._sampled(forward), depth, tp
+
+    # ------------------------------------------------------------------
+    # Running the steps: the step functions on the CPU, their CUDA graphs
+    # on cuda (dispatch by device, as the kernels dispatch)
+    # ------------------------------------------------------------------
+    def _use_graphs(self) -> bool:
+        """The hot steps replay as CUDA graphs on ``cuda`` and run as the
+        step functions everywhere else."""
+        return self.device.type == "cuda"
+
+    def _graph(self, key, fn, specs, warmup=None) -> StepGraph:
+        """The graph of ``key``, captured at its first use over fresh
+        static inputs of ``specs``, into the engine's shared pool."""
+        graph = self._graphs.get(key)
+        if graph is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = self._graphs[key] = StepGraph(
+                fn, StaticInputs(specs, self.device), warmup=warmup,
+                pool=self._graph_pool)
+        return graph
+
+    def _graph_outputs(self, out, gen):
+        """A decode graph's outputs as ``(tokens, finite)``: greedy steps
+        sample inside the graph, the others draw from ``gen`` here."""
+        return out if self.cfg.temperature <= 0 else self._draw(*out, gen)
+
+    def _paged_decode(self, toks, bt, lengths, act, gen):
+        """One paged pool step of the current step function on host arrays
+        (tokens (B, S), block tables (B, MP), lengths (B,), active (B,))
+        -> ``(tokens (B, S), finite (B,))`` on the device.  On ``cuda`` the
+        step replays its key's graph, captured at first use with every slot
+        parked on the null page (the zeroed static inputs)."""
+        step, pages, dev = self._pool_step, self._pool.pages, self.device
+        if not self._use_graphs():
+            return step(self.params, pages,
+                        *(torch.as_tensor(a, device=dev)
+                          for a in (toks, bt, lengths, act)), gen)
+        fn = (step if self.cfg.temperature <= 0 else step.forward)
+        tail = (None,) if fn is step else ()
+
+        def run(*static):
+            return fn(self.params, pages, *static, *tail)
+
+        graph = self._graph(step, run, [
+            (toks.shape, torch.int32), (bt.shape, torch.int32),
+            (lengths.shape, torch.int32), (act.shape, torch.bool)])
+        return self._graph_outputs(graph(toks, bt, lengths, act), gen)
+
+    def _slot_decode(self, toks, act, gen):
+        """One slot-pool step of the current step function on host arrays
+        (tokens (B, S), active (B,)), its caches copied into the pool ->
+        ``(tokens (B, S), finite (B,))`` on the device.  On ``cuda`` the
+        step and the pool update replay as its key's graph; the warm-up
+        before the capture runs on a zeroed copy of the pool, so a capture
+        mid-serve leaves every live slot's cache as it was."""
+        step, pool, dev = self._pool_step, self._pool, self.device
+        if not self._use_graphs():
+            out, finite, caches = step(
+                self.params, pool.pool, torch.as_tensor(toks, device=dev),
+                torch.as_tensor(act, device=dev), gen)
+            pool.update(caches)
+            return out, finite
+        fn = (step if self.cfg.temperature <= 0 else step.forward)
+        tail = (None,) if fn is step else ()
+
+        def run(tokens, active):
+            *out, caches = fn(self.params, pool.pool, tokens, active, *tail)
+            pool.update(caches)
+            return tuple(out)
+
+        def warmup(tokens, active):
+            scratch = L.tree_map(torch.zeros_like, pool.pool)
+            fn(self.params, scratch, tokens, active, *tail)
+
+        graph = self._graph(step, run, [(toks.shape, torch.int32),
+                                        (act.shape, torch.bool)],
+                            warmup=warmup)
+        return self._graph_outputs(graph(toks, act), gen)
+
+    def _paged_prefill(self, chunk, slot: int, base: int) -> None:
+        """Write one prefill chunk of ``slot``'s prompt (host tokens, C of
+        them, from absolute position ``base``) into its pages.  On ``cuda``
+        with ``prefill_chunk`` > 0 every chunk has the width C, and one
+        graph per width serves every slot and chunk index: the block-table
+        row and ``base`` are static inputs, ``base`` a device scalar
+        (whole-prompt prefill, one width per prompt, runs eagerly)."""
+        pool, dev = self._pool, self.device
+        if not (self._use_graphs() and self.cfg.prefill_chunk):
+            self.model.paged_prefill_chunk(
+                self.params, pool.pages,
+                torch.as_tensor(chunk[None], device=dev),
+                torch.as_tensor(pool.block_tables[slot], device=dev), base,
+                self.plan)
+            return
+
+        def run(tokens, block_table, base_t):
+            self.model.paged_prefill_chunk(self.params, pool.pages, tokens,
+                                           block_table, base_t, self.plan)
+
+        bt = pool.block_tables[slot]
+        graph = self._graph(("prefill_chunk", chunk.size), run, [
+            ((1, chunk.size), torch.int32), (bt.shape, torch.int32),
+            ((), torch.int32)])
+        graph(chunk[None], bt, base)
 
     # ------------------------------------------------------------------
     # The paper loop at serve time: counters -> decision tree -> plan
@@ -1155,7 +1303,8 @@ class Engine:
                     req.prefill_pos = 0
                     prefills.append(req)
                 else:
-                    cache, first_tok = self._prefill_slot(hist)
+                    with _span("serve.prefill"):
+                        cache, first_tok = self._prefill_slot(hist)
                     calls["prefill"] += hist.size >= 2
                     pool.write(slot, cache)
                     pending[slot] = first_tok
@@ -1173,8 +1322,9 @@ class Engine:
                 feed = req.token_history()[:-1]
                 chunk = feed[req.prefill_pos:
                              req.prefill_pos + self.cfg.prefill_chunk]
-                pcaches[slot] = self._slot_advance(pcaches[slot], chunk,
-                                                   pmode)
+                with _span("serve.prefill"):
+                    pcaches[slot] = self._slot_advance(pcaches[slot], chunk,
+                                                       pmode)
                 calls["prefill"] += 1
                 budget -= 1
                 req.prefill_pos += chunk.size
@@ -1216,13 +1366,11 @@ class Engine:
                         toks_in[slot, 1:] = draft_ngram(req.token_history(),
                                                         D)
                     snaps[slot] = pool.snapshot(slot)
-            out, finite, caches = self._pool_step(
-                self.params, pool.pool, torch.as_tensor(toks_in, device=dev),
-                torch.as_tensor(active, device=dev), gen)
-            pool.update(caches)
+            with _span("serve.decode"):
+                out, finite = self._slot_decode(toks_in, active, gen)
+                out_np = out.cpu().numpy()
+                finite_np = finite.cpu().numpy()
             steps += 1
-            out_np = out.cpu().numpy()
-            finite_np = finite.cpu().numpy()
 
             # per-step health guard + acceptance walk (paged semantics on
             # the slot pool): a faulted slot commits nothing and retries
@@ -1275,8 +1423,9 @@ class Engine:
                         # drafts — re-advance the pre-step snapshot over
                         # exactly the c accepted inputs, the state a
                         # sequential decode of the committed tokens holds
-                        pool.write(slot, self._slot_advance(
-                            snaps[slot], toks_in[slot, :c], dmode))
+                        with _span("serve.readvance"):
+                            pool.write(slot, self._slot_advance(
+                                snaps[slot], toks_in[slot, :c], dmode))
                         calls["readvance"] += 1
             dt_step = time.perf_counter() - t_step0
             self.health.note_step(dt_step, n_slot_faults=len(faulted))
@@ -1315,8 +1464,8 @@ class Engine:
         prev_stall: set = set()             # last step's stalled slot set
         # the DECODE-masked block tables change only when pool composition
         # changes (admission / completion / preemption / stall / growth):
-        # cache the device copy instead of re-uploading it every step
-        bt_dev = {"arr": None, "act": None, "dirty": True}
+        # cache the masked table instead of remaking it every step
+        bt_host = {"arr": None, "act": None, "dirty": True}
 
         def release_slot(slot, req=None):
             # publish the finished request's fully-written pages to the
@@ -1324,7 +1473,7 @@ class Engine:
             if req is not None:
                 pool.register_prefix(slot, req.token_history())
             pool.release(slot)
-            bt_dev["dirty"] = True
+            bt_host["dirty"] = True
 
         def preempt_victim(victim):
             """Evict a resident decode: pages back to the allocator, the
@@ -1334,7 +1483,7 @@ class Engine:
             pool.preempt(victim)
             active[victim] = False
             pending[victim] = 0
-            bt_dev["dirty"] = True
+            bt_host["dirty"] = True
 
         def fail_request(slot, req, reason):
             """A resident request exhausted its retries: terminal FAILED
@@ -1342,7 +1491,7 @@ class Engine:
             pool.release(slot)
             active[slot] = False
             pending[slot] = 0
-            bt_dev["dirty"] = True
+            bt_host["dirty"] = True
             sched.fail(req, now(), reason)
 
         def admit_ready(t):
@@ -1398,7 +1547,7 @@ class Engine:
                     pool.register_prefix(slot, hist)
                     sched.start_decode(req, now())
                     active[slot] = True
-                    bt_dev["dirty"] = True
+                    bt_host["dirty"] = True
                 else:
                     prefills.append(req)
 
@@ -1419,11 +1568,8 @@ class Engine:
                     true_c = chunk.size
                     if true_c < C:
                         chunk = np.pad(chunk, (0, C - true_c))
-                    self.model.paged_prefill_chunk(
-                        self.params, pool.pages,
-                        torch.as_tensor(chunk[None], device=dev),
-                        torch.as_tensor(pool.block_tables[slot], device=dev),
-                        req.prefill_pos, self.plan)
+                    with _span("serve.prefill"):
+                        self._paged_prefill(chunk, slot, req.prefill_pos)
                     budget -= 1
                     if (self.faults is not None
                             and self.faults.fire("prefill.nan")):
@@ -1447,7 +1593,7 @@ class Engine:
                         pool.register_prefix(slot, req.token_history())
                         sched.start_decode(req, now())
                         active[slot] = True
-                        bt_dev["dirty"] = True
+                        bt_host["dirty"] = True
                         prefills.pop(0)
 
                 if not sched.active:
@@ -1498,7 +1644,7 @@ class Engine:
                         preempt_victim(victim)
                 stalled = [s for s in stalled if s in sched.active]
                 if gov.grown_pages != grown0 or pool.cow_copies != cow0:
-                    bt_dev["dirty"] = True      # block-table rows edited
+                    bt_host["dirty"] = True      # block-table rows edited
                 if sched.active and len(stalled) == len(sched.active):
                     # every decode is out of pages: only resident prefills
                     # can free the jam — keep prefilling, skip the step
@@ -1516,27 +1662,25 @@ class Engine:
                 stall_arr[stalled] = True
                 if set(stalled) != prev_stall:
                     prev_stall = set(stalled)
-                    bt_dev["dirty"] = True
+                    bt_host["dirty"] = True
                 eff = active & ~stall_arr
-                if bt_dev["dirty"]:
-                    bt_dev["arr"] = torch.as_tensor(
-                        (pool.block_tables * eff[:, None]).astype(np.int32),
-                        device=dev)
-                    bt_dev["act"] = torch.as_tensor(eff, device=dev)
-                    bt_dev["dirty"] = False
-                out, finite = self._pool_step(
-                    self.params, pool.pages,
-                    torch.as_tensor(toks_in, device=dev), bt_dev["arr"],
-                    torch.as_tensor((pool.lengths * eff).astype(np.int32),
-                                    device=dev),
-                    bt_dev["act"], gen)
+                if bt_host["dirty"]:
+                    bt_host["arr"] = (pool.block_tables
+                                      * eff[:, None]).astype(np.int32)
+                    bt_host["act"] = eff
+                    bt_host["dirty"] = False
+                with _span("serve.decode"):
+                    out, finite = self._paged_decode(
+                        toks_in, bt_host["arr"],
+                        (pool.lengths * eff).astype(np.int32),
+                        bt_host["act"], gen)
+                    out_np = out.cpu().numpy()
+                    finite_np = finite.cpu().numpy()
                 if (self.faults is not None
                         and self.faults.fire("step.latency")):
                     time.sleep(self.faults.latency_s)
                 steps += 1
                 gov.note_step(len(stalled))
-                out_np = out.cpu().numpy()
-                finite_np = finite.cpu().numpy()
 
                 # the per-step health guard: a stepped slot whose logits
                 # came back non-finite (or was chaos-flagged) commits

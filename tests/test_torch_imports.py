@@ -16,6 +16,7 @@ import torch
 import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                               "repro_torch.")]
+assert "repro_torch.serve.graphs" in mods, mods
 for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
