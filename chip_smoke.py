@@ -80,8 +80,32 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    each scan kernel is timed at every such shape, and launches x (time -
    bound) is summed over them.
 
+5. [train]: the training path at stablelm-1.6b's full width (no kernel
+   of its own: the JAX training path reaches no ``pallas_call``).  bf16
+   params from ``Model.init(seed=0)``, B 8 x S 512 from the data
+   pipeline, AdamW (lr 3e-4, warmup-cosine over 12 steps).  Step 0's loss
+   and grads without and with every layer remat (equal loss; grads within
+   2^-8 of each leaf's scale).  12 steps under ``null_plan()`` on the
+   pipeline's batches 0-11, each step's loss, grad norm, lr and device ms
+   (CUDA events), then the median step, tok/s, the share of the bf16
+   dense peak by ``model_flops`` (6·N·D) and the peak allocated.  One
+   more step under ``torch.profiler`` (busy share, cuBLAS's products
+   against the rest, the top kernels), and forward+backward and the
+   optimizer timed apart.  The same init on batches 0-3 three times:
+   the last three losses' mean must be below the first three's (on 12
+   fresh batches at this rate the loss does not fall, so that run is not
+   gated on it).  2 remat steps (equal step-0 loss, a lower peak).  Every
+   run: finite losses and grad norms, every weight matrix and embedding
+   changed.  One step counted per region on the meta device (each layer
+   2.5-3.5x its forward's flops).  Then, at the reduced config, ``python
+   -m repro_torch.launch.train`` killed at step 6 (exit 42) and resumed
+   from its step-4 checkpoint, and, in a process with
+   ``CUBLAS_WORKSPACE_CONFIG`` set, 8 steps against 4 + save + restore +
+   4 under deterministic algorithms, equal bit for bit.
+
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
-timed config (both spins and the host time per call) and exits.
+timed config (both spins and the host time per call) and exits;
+``python3 chip_smoke.py --train`` runs only the [train] phase.
 
 Random weights come from a seeded torch.Generator.  The launch counts of
 each serve phase are set to 0 just before it and read just after.  The
@@ -92,6 +116,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -189,6 +214,9 @@ ATTN_EXTRA = [(256, 128, 64, 64, 64, True, 16), (128, 256, 64, 32, 32,
               (256, 128, 64, 64, 32, False, 8)]
 # the timed calls: stablelm-1.6b's heads (32 of 64) at B 8, S 512, causal,
 # window 0 and 128, default tiles
+# [train]: stablelm-1.6b at full width, 12 steps of B 8 x S 512 (4096
+# tokens), AdamW at lr 3e-4 with the warmup-cosine schedule over the 12
+TRAIN = dict(batch=8, seq=512, steps=12, lr=3e-4)
 ATTN_TIMED = dict(B=8, S=512, H=32, D=64, windows=(0, 128))
 
 
@@ -1542,6 +1570,376 @@ def slot_graph_phase(torch, model, params, dev,
 
 
 # ---------------------------------------------------------------------------
+# train phase: the training path at full width
+# ---------------------------------------------------------------------------
+
+
+def _event_ms(torch, fn):
+    """(fn's result, its span on the card in ms by CUDA events, the host's
+    wall ms); synchronises after."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b), (time.perf_counter() - t0) * 1e3
+
+
+def _free(torch) -> None:
+    """Free what nothing references any more, cycles included, so that a
+    peak read after this counts only what runs next."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _gib(n: float) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def train_phase(torch) -> None:
+    """[train] stablelm-1.6b at full width through
+    ``repro_torch.train.trainer``: phase 5 of the module docstring."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import counters, roofline
+    from repro_torch.core.policy import default_plan, null_plan
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build, model_flops
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    dev = torch.device("cuda")
+    _free(torch)
+    log(f"[train] allocated before the phase (earlier phases freed): "
+        f"{_gib(torch.cuda.memory_allocated())}")
+    model = build(get_config(ARCH))
+    cfg = model.cfg
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    data = DataConfig(cfg.vocab_size, seq_len=S, global_batch=B, seed=0)
+    flops = model_flops(cfg, ShapeConfig("train", S, B, "train"))
+    peak = roofline.peak_ops(torch.bfloat16, roofline.card_for(
+        torch.cuda.get_device_name(0)))
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN["lr"])
+    plans = {"null": null_plan(), "remat": default_plan(kind="train")}
+    params = model.init(0, dtype=torch.bfloat16, device=dev)
+    n_params = sum(t.numel() for t in L.tree_leaves(params))
+    log(f"[train] {ARCH} full width: {n_params} params (bf16), B {B} S "
+        f"{S}, model_flops 6·N·D = {flops/1e12:.2f} TFLOP a step, "
+        f"{peak/1e12:.0f} TFLOP/s bf16 dense peak")
+
+    # step 0's loss and grads, without and with remat, on the same params
+    batch0 = batch_at(data, 0, dev)
+    grads = {}
+    for name, plan in plans.items():
+        (loss, _), grads[name] = trainer.make_grad_fn(model, plan)(params,
+                                                                   batch0)
+        grads[name + "_loss"] = loss.item()
+    worst = 0.0
+    for gn, gr in zip(L.tree_leaves(grads["null"]),
+                      L.tree_leaves(grads["remat"])):
+        scale = gn.float().abs().max().item()
+        worst = max(worst, (gr.float() - gn.float()).abs().max().item()
+                    / max(scale, 1e-30))
+    equal = all(torch.equal(a, b) for a, b in zip(
+        L.tree_leaves(grads["null"]), L.tree_leaves(grads["remat"])))
+    log(f"[train] step 0, null plan vs every layer remat: loss "
+        f"{grads['null_loss']!r} vs {grads['remat_loss']!r}; grads "
+        f"{'equal bit for bit' if equal else 'differ'}, largest difference "
+        f"{worst:.3e} of its leaf's largest magnitude (tolerance 2^-8: one "
+        f"bf16 rounding; the embedding's backward may sum in any order)")
+    check(grads["null_loss"] == grads["remat_loss"],
+          "remat changed step 0's loss")
+    check(worst <= 2.0 ** -8, f"remat grads differ by {worst:.3e}")
+    loss0 = grads["null_loss"]
+    del grads
+
+    # 12 steps under the null plan on the pipeline's batches 0-11
+    params, opt, run = _train_run(torch, model, plans["null"], opt_cfg,
+                                  data, range(steps), "null plan", params)
+    med = float(np.median(run["ms"][1:]))
+    log(f"[train] null plan: median step {med:.3f} ms over steps 2-{steps} "
+        f"-> {B * S / med * 1e3:.1f} tok/s, {flops / (med * 1e-3) / 1e12:.1f}"
+        f" TFLOP/s = {flops / (med * 1e-3) / peak * 100:.1f}% of the bf16 "
+        f"dense peak by model_flops; peak allocated {_gib(run['peak'])} "
+        f"({run['peak']} bytes); losses: first three "
+        f"{np.mean(run['loss'][:3]):.4f}, last three "
+        f"{np.mean(run['loss'][-3:]):.4f} (fresh batches: not gated)")
+    check(run["loss"][0] == loss0, "step 0's loss differs from the grad fn's")
+
+    # where a step's time goes: the device's kernels in one step, then
+    # forward + backward and the optimizer apart, in turns
+    step_fn = trainer.make_train_step(model, plans["null"], opt_cfg=opt_cfg,
+                                      schedule_total=steps)
+    _profile_step(torch, lambda: step_fn(params, opt, batch0))
+    grad_fn = trainer.make_grad_fn(model, plans["null"])
+    fb, up = [], []
+    for _ in range(3):
+        out, dms, _ = _event_ms(torch, lambda: grad_fn(params, batch0))
+        g = out[1]
+        del out
+        fb.append(dms)
+        up.append(_event_ms(torch, lambda: adamw.apply_updates(
+            opt_cfg, params, g, opt, 1.0))[1])
+        del g
+    log(f"[train] null plan split: forward+backward {np.median(fb):.3f} "
+        f"ms, optimizer (AdamW, {n_params} params) {np.median(up):.3f} ms "
+        f"(CUDA events, median of 3 in turns)")
+    del params, opt, step_fn, grad_fn
+
+    # the same init, 12 steps on batches 0-3 three times: the loss falls
+    params, opt, seen = _train_run(torch, model, plans["null"], opt_cfg,
+                                   data, [s % 4 for s in range(steps)],
+                                   "null plan, batches 0-3 x 3")
+    log(f"[train] batches 0-3 x 3: losses first three "
+        f"{np.mean(seen['loss'][:3]):.4f}, last three "
+        f"{np.mean(seen['loss'][-3:]):.4f}")
+    check(np.mean(seen["loss"][-3:]) < np.mean(seen["loss"][:3]),
+          f"loss did not fall: {seen['loss']}")
+    del params, opt
+
+    # the same init and data, 2 steps, every layer remat
+    params, opt, rem = _train_run(torch, model, plans["remat"], opt_cfg,
+                                  data, range(2), "remat (every layer)")
+    log(f"[train] remat (every layer): step 0 loss {rem['loss'][0]!r} (null "
+        f"plan {run['loss'][0]!r}), step 1 loss {rem['loss'][1]:.4f} "
+        f"({run['loss'][1]:.4f}); step {rem['ms'][0]:.3f} / "
+        f"{rem['ms'][1]:.3f} ms (null plan {run['ms'][0]:.3f} / "
+        f"{run['ms'][1]:.3f}); peak allocated {_gib(rem['peak'])} against "
+        f"{_gib(run['peak'])} under the null plan")
+    check(rem["loss"][0] == run["loss"][0], "remat changed step 0's loss")
+    check(rem["peak"] < run["peak"], "remat did not lower the peak")
+    del params, opt
+
+    # one step counted per region on the meta device
+    mparams = L.tree_map(lambda sp: torch.empty(
+        sp.shape, dtype=torch.bfloat16, device="meta"), model.spec())
+    mopt = adamw.init_state(mparams)
+    mbatch = counters.to_meta(batch0)
+    t0 = time.perf_counter()
+    fwd = counters.collect(lambda p, b: model.forward(p, b, plans["null"]),
+                           mparams, mbatch)
+    rc = counters.collect(trainer.make_train_step(model, plans["null"]),
+                          mparams, mopt, mbatch)
+    ratios = [_layer_flops(rc, li) / _layer_flops(fwd, li)
+              for li in range(cfg.n_layers)]
+    log(f"[train] counted on the meta device in "
+        f"{time.perf_counter() - t0:.2f} s: a step {rc.total.flops/1e12:.3f}"
+        f" TFLOP = {rc.total.flops / flops:.4f} x model_flops, "
+        f"{rc.total.bytes/1e9:.1f} GB; forward {fwd.total.flops/1e12:.3f} "
+        f"TFLOP; each layer's step / forward flops "
+        f"{min(ratios):.4f}-{max(ratios):.4f}; optimizer "
+        f"{rc.regions['optimizer'].bytes/1e9:.1f} GB")
+    check(all(2.5 <= r <= 3.5 for r in ratios),
+          f"a layer's step / forward flops outside 2.5-3.5: {ratios}")
+    del mparams, mopt
+
+    launcher_resume_phase()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-resume"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    for line in proc.stdout.splitlines():
+        log(line)
+    check(proc.returncode == 0,
+          f"resume check failed: {proc.stderr[-2000:]}")
+
+
+def _train_run(torch, model, plan, opt_cfg, data, batches, label,
+               params=None):
+    """Train ``model`` from ``Model.init(seed=0)`` (or ``params``) on the
+    pipeline's ``batches`` (one step each) with fresh AdamW state; log
+    each step's loss, grad norm, lr and device ms.  Returns (params,
+    state, {"loss", "gnorm", "ms", "peak"}), the peak allocated over the
+    steps.  Gates: finite losses and grad norms; every weight matrix and
+    embedding changed (a norm's scale of 1.0 in bf16 keeps an update under
+    half its ulp, 2^-9, rounded away, as the JAX package's bf16 cast
+    does)."""
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    dev = torch.device("cuda")
+    if params is None:
+        params = model.init(0, dtype=torch.bfloat16, device=dev)
+    before = {k: t.to("cpu", copy=True)
+              for k, t in _named_leaves(params).items()}
+    opt = adamw.init_state(params)
+    step_fn = trainer.make_train_step(model, plan, opt_cfg=opt_cfg,
+                                      schedule_total=TRAIN["steps"])
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    run = {"loss": [], "gnorm": [], "ms": []}
+    for i, s in enumerate(batches):
+        batch = batch_at(data, s, dev)
+        (params, opt, m), dms, wall = _event_ms(
+            torch, lambda: step_fn(params, opt, batch))
+        run["loss"].append(m["loss"].item())
+        run["gnorm"].append(m["grad_norm"].item())
+        run["ms"].append(dms)
+        log(f"[train] {label} step {i:2d} (batch {s}): loss "
+            f"{run['loss'][-1]:.4f} grad_norm {run['gnorm'][-1]:.4f} lr "
+            f"{m['lr'].item():.3e} device {dms:.3f} ms (host wall "
+            f"{wall:.3f} ms)")
+    run["peak"] = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(run["loss"])) and all(np.isfinite(run["gnorm"])),
+          f"{label}: non-finite loss or grad norm: {run}")
+    same = [k for k, t in _named_leaves(params).items()
+            if torch.equal(before[k], t.cpu())]
+    log(f"[train] {label}: {len(before) - len(same)}/{len(before)} leaves "
+        f"changed; unchanged: {same or 'none'}")
+    check(not [k for k in same if "norm" not in k],
+          f"{label}: a weight matrix or embedding did not change: {same}")
+    return params, opt, run
+
+
+def _profile_step(torch, fn, top: int = 10) -> None:
+    """Run ``fn`` once under ``torch.profiler`` and log the card's busy
+    share of its wall time, the device time in cuBLAS's products and in
+    everything else, and the ``top`` kernels by device time."""
+    import collections
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.regions import REGION_PREFIX
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith(REGION_PREFIX)]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    by_name: dict = collections.defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    gemm = sum(ms for name, (ms, _) in by_name.items()
+               if any(k in name.lower()
+                      for k in ("gemm", "nvjet", "cutlass", "xmma")))
+    total = sum(ms for ms, _ in by_name.values())
+    log(f"[train-profile] one step: wall {wall:.3f} ms (profiled), device "
+        f"busy {busy:.3f} ms = {100 * busy / wall:.1f}%, {len(dev)} kernels "
+        f"and copies; cuBLAS products {gemm:.3f} ms, the rest "
+        f"{total - gemm:.3f} ms")
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        log(f"[train-profile] device {ms:9.3f} ms {n:6d}x  {name[:90]}")
+
+
+def _named_leaves(tree, prefix="") -> dict:
+    """{"a/b/c": leaf} of a nested dict of tensors."""
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: tree}
+    out = {}
+    for k in sorted(tree):
+        out.update(_named_leaves(tree[k], f"{prefix}{k}/"))
+    return out
+
+
+def _layer_flops(rc, li) -> float:
+    """Flops of ``layer<li>`` with the regions nested in it."""
+    r = f"layer{li}"
+    return sum(c.flops for k, c in rc.regions.items()
+               if k == r or k.startswith(r + "/"))
+
+
+def launcher_resume_phase() -> None:
+    """``python -m repro_torch.launch.train`` at the reduced config on
+    the card: killed at step 6 (exit 42) after a checkpoint at 4, then
+    resumed from it to step 12."""
+    import shutil
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="smoke_train_", dir=ROOT / "build")
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+            "12", "--batch", "2", "--seq", "32", "--ckpt-dir", ckpt,
+            "--ckpt-every", "4", "--log-every", "4"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    try:
+        runs = []
+        for extra, want in ((["--fail-at-step", "6"], 42), (["--resume"], 0)):
+            t0 = time.perf_counter()
+            proc = subprocess.run(base + extra, cwd=ROOT, env=env,
+                                  capture_output=True, text=True, timeout=600)
+            runs.append(proc)
+            log(f"[train] launcher {' '.join(extra)}: exit "
+                f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+                + " | ".join(proc.stdout.strip().splitlines()))
+            check(proc.returncode == want,
+                  f"launcher {extra}: exit {proc.returncode}, want {want}: "
+                  f"{proc.stderr[-2000:]}")
+        check("resumed from step 4" in runs[1].stdout
+              and "done:" in runs[1].stdout, "the launcher did not resume")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def train_resume_check(torch) -> None:
+    """``chip_smoke.py --train-resume`` (run by the train phase in a
+    process of its own, with ``CUBLAS_WORKSPACE_CONFIG`` set before the
+    first cuBLAS call): under ``torch.use_deterministic_algorithms(True)``,
+    8 uninterrupted steps of reduced stablelm-1.6b (bf16, the launcher's
+    default) against 4 steps, a checkpoint, a restore into a fresh init
+    and 4 more: the params and moments must be equal bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import trainer
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda")
+    model = build(get_config(ARCH).reduced())
+    data = DataConfig(model.cfg.vocab_size, 32, 4, seed=0)
+    step = trainer.make_train_step(model, opt_cfg=adamw.AdamWConfig(lr=3e-3),
+                                   schedule_total=60)
+
+    def fresh(seed=0):
+        p = model.init(seed, dtype=torch.bfloat16, device=dev)
+        return p, adamw.init_state(p)
+
+    p1, o1 = fresh()
+    for s in range(8):
+        p1, o1, m1 = step(p1, o1, batch_at(data, s, dev))
+    p2, o2 = fresh()
+    for s in range(4):
+        p2, o2, _ = step(p2, o2, batch_at(data, s, dev))
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="smoke_resume_", dir=ROOT / "build")
+    try:
+        ck.save(ckpt, 4, {"params": p2, "opt": o2})
+        p3, o3 = fresh(1)
+        state, start = ck.restore(ckpt, {"params": p3, "opt": o3})
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    p2, o2 = state["params"], state["opt"]
+    for s in range(start, 8):
+        p2, o2, m2 = step(p2, o2, batch_at(data, s, dev))
+    same = [torch.equal(a, b) for a, b in zip(
+        L.tree_leaves({"p": p1, "mu": o1["mu"], "nu": o1["nu"]}),
+        L.tree_leaves({"p": p2, "mu": o2["mu"], "nu": o2["nu"]}))]
+    log(f"[train] resume in process ({ARCH} reduced, bf16, deterministic "
+        f"algorithms): 8 steps vs 4 + save + restore + 4: {sum(same)}/"
+        f"{len(same)} leaves equal bit for bit, final loss "
+        f"{m1['loss'].item():.6f} vs {m2['loss'].item():.6f}")
+    check(all(same) and o2["step"].item() == o1["step"].item() == 8,
+          "resumed run differs from the uninterrupted one")
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_all(torch) -> None:
@@ -1615,6 +2013,13 @@ def main() -> int:
         log(f"[card] {card_line()}")
         paged_host_time(torch)
         return 0
+    if sys.argv[1:] == ["--train-resume"]:
+        train_resume_check(torch)
+        return 0
+    if sys.argv[1:] == ["--train"]:
+        log(f"[card] {card_line()}")
+        train_phase(torch)
+        return 0
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -1667,6 +2072,7 @@ def main() -> int:
             check(sum(n for key, n in shape_counts.items() if key[0] == k)
                   == launches[k], f"{k}: calls by shape != launches")
     serve_shape_phase(torch, shape_counts, scan_records)
+    train_phase(torch)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -37,8 +37,10 @@ from collections import defaultdict
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.core import regions
 from repro_torch.core.regions import current_region
 
 
@@ -206,6 +208,39 @@ class CountingMode(TorchDispatchMode):
         return out
 
 
+class BackwardRegions(TorchFunctionMode):
+    """Labels every autograd node a function call makes with the region
+    state the call ran under, and hooks the node so that the engine runs
+    it under that state again: a pre-hook enters it and a post-hook
+    leaves it.  A call's new nodes are those reachable from its outputs'
+    ``grad_fn`` that carry no label yet, composite calls' inner nodes
+    included.  Where the engine runs the backward in the calling thread
+    — the CPU and the meta device, where :func:`collect` counts — the
+    thread-local region state is the one :class:`CountingMode` reads."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if torch.is_grad_enabled():
+            snap = None
+            for t in _tensors(out):
+                if t.grad_fn is not None:
+                    snap = snap or regions.snapshot()
+                    _label(t.grad_fn, snap)
+        return out
+
+
+def _label(node, snap) -> None:
+    todo = [node]
+    while todo:
+        n = todo.pop()
+        if n is None or "region" in n.metadata:
+            continue
+        n.metadata["region"] = snap
+        n.register_prehook(lambda grads, snap=snap: regions.push_path(snap))
+        n.register_hook(lambda grads_in, grads_out: regions.pop_path())
+        todo.extend(f for f, _ in n.next_functions)
+
+
 _active: list = []
 
 
@@ -222,7 +257,7 @@ def to_meta(obj):
     """``obj`` with every tensor in it (nested dicts, lists, tuples) moved
     to the meta device; anything else as it is."""
     if isinstance(obj, torch.Tensor):
-        return obj.to("meta")
+        return obj.detach().to("meta")
     if isinstance(obj, dict):
         return {k: to_meta(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -234,13 +269,16 @@ def collect(fn: Callable, *args: Any, **kwargs: Any) -> RegionCounters:
     """Count ``fn(*args, **kwargs)`` per region without running it: its
     tensor arguments go to the meta device, and every aten op it
     dispatches is counted (:func:`op_counters`) under the region it runs
-    in.  ``fn`` must not synchronise with the host (``.item()``,
-    ``.cpu()``): a meta tensor has no value, so such a call raises."""
+    in.  ``fn`` runs under ``torch.no_grad()``; one that differentiates
+    (a train step) enables grad itself, and its backward ops are counted
+    under the regions of the forward ops they differentiate.  ``fn`` must
+    not synchronise with the host (``.item()``, ``.cpu()``): a meta tensor
+    has no value, so such a call raises."""
     margs, mkwargs = to_meta(args), to_meta(kwargs)
     mode = CountingMode()
     _active.append(mode)
     try:
-        with torch.no_grad(), mode:
+        with torch.no_grad(), BackwardRegions(), mode:
             fn(*margs, **mkwargs)
     finally:
         _active.pop()

@@ -27,6 +27,7 @@ import threading
 from typing import Callable, Iterator, Optional
 
 import torch
+import torch.utils.checkpoint
 
 REGION_PREFIX = "R."
 
@@ -87,6 +88,45 @@ def region(name: str) -> Iterator[str]:
             yield path
     finally:
         st.pop()
+
+
+def snapshot() -> tuple:
+    """The region state now — (names entered, names tagged) — to run code
+    under again later with :func:`push_path`."""
+    return tuple(_stack()), tuple(_tagged())
+
+
+def push_path(snap: tuple) -> None:
+    """Run what follows under the region state ``snap`` (from
+    :func:`snapshot`) until the matching :func:`pop_path`: the autograd
+    engine runs a backward node, and a rematerialised layer its
+    recompute, after the forward's regions have closed."""
+    if not hasattr(_state, "saved"):
+        _state.saved = []
+    _state.saved.append((_stack(), _tagged()))
+    _state.stack, _state.tagged = list(snap[0]), list(snap[1])
+
+
+def pop_path() -> None:
+    _state.stack, _state.tagged = _state.saved.pop()
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    forward keeps only ``args``, and the backward recomputes ``fn``.  The
+    recompute runs under the region state of the first call, so its ops
+    are attributed and labelled as in the forward (``jax.checkpoint`` in
+    the JAX package)."""
+    snap = snapshot()
+
+    def run(*a):
+        push_path(snap)
+        try:
+            return fn(*a)
+        finally:
+            pop_path()
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 @contextlib.contextmanager

@@ -27,6 +27,21 @@ def _meta(shapes, dtype, work_done):
     return outs if len(outs) > 1 else outs[0]
 
 
+def _no_grad_path(name, *tensors) -> None:
+    """Raise when ``name`` would be differentiated: the hand-written
+    kernels have no backward, and a CUDA kernel's output carries no
+    ``grad_fn``, so the gradients of everything upstream would be dropped
+    on the card while the plain version gave them on the CPU.  The rule
+    is the same on every device; training takes the models' einsum paths
+    (and ``torch.no_grad()`` serving is unaffected)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires "
+            f"grad; call it under torch.no_grad() or on detached inputs")
+
+
 def _no_version(name, dev):
     return ValueError(f"{name}: no version for device {dev}")
 
@@ -38,6 +53,7 @@ def paged_attention_mq(q: torch.Tensor, k_pages: torch.Tensor,
     """Multi-query paged decode attention (speculative verify), kernel
     layout q: (B, S, KVH, G, HD); query s sees lengths + s positions.
     Returns q's shape and dtype."""
+    _no_grad_path("paged_attention_mq", q, k_pages, v_pages)
     if q.device.type == "cuda":
         return _paged.paged_attention_mq(q, k_pages, v_pages, block_tables,
                                          lengths, block_k=block_k)
@@ -59,6 +75,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     block_k: int = 0) -> torch.Tensor:
     """Paged decode attention, one query per slot: q (B, KVH, G, HD) — the
     S=1 case of :func:`paged_attention_mq`."""
+    _no_grad_path("paged_attention", q, k_pages, v_pages)
     return paged_attention_mq(q[:, None].contiguous(), k_pages, v_pages,
                               block_tables, lengths, block_k=block_k)[:, 0]
 
@@ -89,6 +106,7 @@ def wkv(r, k, v, w, u, s0, *, mode: str = "fused_recurrent",
     the matmul-form chunked scan with ``chunk``-step chunks (as given: the
     model's chunk length reaches the kernel unclamped).  On CUDA the
     streams move to the kernel layout (B, H, T, N) in f32 and back."""
+    _no_grad_path("wkv", r, k, v, w, u, s0)
     chunked = _scan_mode(mode)
     if r.device.type == "cuda":
         tr = lambda t: _scan_f32(t.transpose(1, 2))  # noqa: E731
@@ -110,6 +128,7 @@ def ssd(x, b, c, dt, a, s0, *, mode: str = "fused_recurrent",
     """Mamba2 SSD in the model layout: x (B, T, H, P); b, c (B, T, N);
     dt (B, T, H); a (H,); s0 (B, H, P, N) -> y (B, T, H, P), final state,
     both f32.  ``mode`` and ``chunk`` as in :func:`wkv`."""
+    _no_grad_path("ssd", x, b, c, dt, a, s0)
     chunked = _scan_mode(mode)
     if x.device.type == "cuda":
         f32 = _scan_f32
@@ -132,6 +151,7 @@ def matmul(x, y, *, bm: int = 128, bn: int = 128, bk: int = 128):
     """x (M, K) @ y (K, N) -> (M, N) in x's dtype, in ``(bm, bn, bk)``
     tiles (clamped to the dims; they must divide them) with an f32
     accumulator."""
+    _no_grad_path("matmul", x, y)
     M, N, K = _mm.check_shapes(x, y)
     if x.device.type == "cuda":
         return _mm.tuned_matmul(x, y, bm=bm, bn=bn, bk=bk)
@@ -151,6 +171,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     through its strides and writes a (B, S, H, D) tensor: one launch and
     no copy (the JAX package's ``ops.attention`` folds the heads into
     (B*H, S, D) and back instead; the result is the same)."""
+    _no_grad_path("attention", q, k, v)
     B, S, H, D = q.shape
     Sk = k.shape[1]
     if q.device.type == "cuda":

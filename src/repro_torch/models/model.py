@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, make_generator, resolve_device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.policy import RegionPlan, null_plan
 from repro_torch.models import layers as L
 
@@ -61,7 +61,10 @@ class Model:
                              dev)
 
     def forward(self, params, batch, plan: Optional[RegionPlan] = None,
-                final_logits_only: bool = False):
+                unroll: bool = True, final_logits_only: bool = False):
+        """(logits, aux).  ``unroll`` is the JAX package's choice between
+        unrolled layers and a ``lax.scan`` over them; eager PyTorch runs
+        the layers one by one either way, so it has no effect."""
         return self.mod.forward(self.cfg, params, batch, plan or null_plan(),
                                 final_logits_only=final_logits_only)
 
@@ -117,6 +120,26 @@ def build(cfg: ArchConfig) -> Model:
 
 def count_params(cfg: ArchConfig) -> int:
     return L.spec_param_count(_family_module(cfg).spec(cfg))
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Params touched per token.  Every ported family is dense in this
+    sense; MoE's active count (shared + top_k of routed) comes with its
+    port (ROADMAP queue 1 item 11), and ``count_params`` raises for it."""
+    return count_params(cfg)
+
+
+def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
+    """6·N·D for training, 2·N_active·D forward-only."""
+    n_active = active_param_count(cfg)
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n_active * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n_active * tokens
+    tokens = shape.global_batch  # one new token per row
+    return 2.0 * n_active * tokens
 
 
 def params_from_numpy(tree: Any, device: DeviceLike = None,

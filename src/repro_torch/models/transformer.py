@@ -11,6 +11,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import regions
 from repro_torch.core.policy import RegionPlan
 from repro_torch.core.regions import region
 from repro_torch.models import attention as attn
@@ -48,38 +49,57 @@ def spec(cfg) -> Any:
     }
 
 
-def _layer_params(blocks: Any, li: int) -> Any:
-    """Layer ``li``'s slice of the stacked block params (views)."""
-    return L.tree_map(lambda a: a[li], blocks)
+def _layer_params(blocks: Any, n: int) -> list:
+    """Each layer's slice of the stacked block params (views), from one
+    ``unbind`` a leaf: its backward stacks the layers' gradients into the
+    stacked leaf's in one op, where indexing ``a[li]`` would zero-fill a
+    full-size gradient for every layer and add them up."""
+    per_leaf = L.tree_map(lambda a: a.unbind(0), blocks)
+    return [L.tree_map(lambda t: t[li], per_leaf) for li in range(n)]
 
 
-def _block_loop(cfg, params, x, plan: RegionPlan, attn_apply):
+def _block_loop(cfg, params, x, plan: RegionPlan, attn_apply,
+                remat: bool = False):
     """Shared per-layer body of every step (forward, slot decode and
     prefill, paged decode, prefill chunk): norm1 -> attention
     (``attn_apply(li, lp, h)`` returns (out, the layer's new cache)) ->
-    norm2 -> mlp.  Returns (x, {"l<i>": new cache})."""
+    norm2 -> mlp.  Returns (x, {"l<i>": new cache}).  With ``remat`` (the
+    forward's), a layer whose plan entry sets ``remat`` is recomputed in
+    the backward (:func:`repro_torch.core.regions.remat`) when grad mode
+    is on; its cache is None."""
     _require_dense(cfg)
-    blocks = params["blocks"]
+    layers = _layer_params(params["blocks"], cfg.n_layers)
     new_layers = {}
     for li in range(cfg.n_layers):
-        lp = _layer_params(blocks, li)
-        with region(f"layer{li}"):
-            h = L.apply_norm(cfg, lp["norm1"], x)
-            a, new_layers[f"l{li}"] = attn_apply(li, lp, h)
-            x = x + a
-            h = L.apply_norm(cfg, lp["norm2"], x)
-            x = x + L.apply_mlp(cfg, lp["mlp"], h, plan)
-            x = plan.constrain(x, f"layer{li}", ("batch", "seq", "embed"))
+        lp = layers[li]
+
+        def body(x, li=li, lp=lp):
+            with region(f"layer{li}"):
+                h = L.apply_norm(cfg, lp["norm1"], x)
+                a, cache = attn_apply(li, lp, h)
+                x = x + a
+                h = L.apply_norm(cfg, lp["norm2"], x)
+                x = x + L.apply_mlp(cfg, lp["mlp"], h, plan)
+                x = plan.constrain(x, f"layer{li}", ("batch", "seq", "embed"))
+                return x, cache
+
+        if (remat and torch.is_grad_enabled()
+                and plan.config_for(f"layer{li}").remat):
+            x = regions.remat(lambda h, body=body: body(h)[0], x)
+            new_layers[f"l{li}"] = None
+        else:
+            x, new_layers[f"l{li}"] = body(x)
     return x, new_layers
 
 
 def forward(cfg, params, batch, plan: RegionPlan,
             final_logits_only: bool = False):
-    """Full-sequence forward: returns (logits, aux_loss=0)."""
+    """Full-sequence forward: returns (logits, aux_loss=0).  Layers whose
+    plan entry sets ``remat`` are recomputed in the backward."""
     x = L.apply_embed(cfg, params["embed"], batch["tokens"], plan)
     x, _ = _block_loop(cfg, params, x, plan,
                        lambda li, lp, h: (attn.apply_attention(
-                           cfg, lp["attn"], h, plan), None))
+                           cfg, lp["attn"], h, plan), None), remat=True)
     x = L.apply_norm(cfg, params["final_norm"], x)
     if final_logits_only:
         x = x[:, -1:]

@@ -2,7 +2,8 @@
 roofline and its oversubscription model, against the JAX package's.
 
 The JAX package counts the compiled step's HLO; the port runs the step on
-the meta device under a dispatch mode.  Products agree exactly (2·M·N·K);
+the meta device under a dispatch mode, and counts a train step's backward
+ops under the regions of the forward ops they differentiate.  Products agree exactly (2·M·N·K);
 elementwise work is counted per aten op here and per fused HLO op there,
 so per-region flops agree within 25% and byte counts differ in kind (the
 ratio is printed: ``pytest -s``).  Region sets, the order of the hottest
@@ -24,7 +25,8 @@ from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import ServeConfig as JServeConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import counters, roofline, smt
-from repro_torch.core.policy import null_plan
+from repro_torch.core import regions as regions_mod
+from repro_torch.core.policy import default_plan, null_plan
 from repro_torch.core.regions import (collect_regions, current_region,
                                       discover_regions, region,
                                       set_region_filter)
@@ -32,6 +34,8 @@ from repro_torch.kernels import LAUNCHES, ops, work
 from repro_torch.models import layers as L
 from repro_torch.models.model import build, params_from_numpy
 from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.train import trainer
+from repro_torch.optim import adamw
 
 
 def test_dot_flops_exact():
@@ -128,6 +132,101 @@ def test_region_filter_attributes_to_the_nearest_tagged_region():
         assert set(rc.regions) == {"outer"}
     finally:
         set_region_filter(None)
+
+
+def test_backward_ops_attributed_to_region():
+    """The JAX package's case: the forward matmul and the w-grad matmul
+    both count in the region of the forward op."""
+    def jf(w, x):
+        with jregion("lyr"):
+            return jnp.sum(jnp.tanh(x @ w))
+
+    jrc = jcounters.collect(jax.jit(jax.grad(jf)).lower(
+        jnp.ones((64, 64)), jnp.ones((32, 64))).compile())
+
+    def f(w, x):
+        w = w.requires_grad_()
+        with torch.enable_grad():
+            with region("lyr"):
+                y = torch.sum(torch.tanh(x @ w))
+            return torch.autograd.grad(y, w)
+
+    rc = counters.collect(f, torch.ones(64, 64), torch.ones(32, 64))
+    for r in (jrc, rc):
+        assert r.regions["lyr"].flops >= 2 * 2 * 32 * 64 * 64 * 0.9
+    assert rc.regions.get("", counters.Counters()).flops < 2 * 32 * 64 * 64
+    assert regions_mod.snapshot() == ((), ())     # the hooks left no state
+
+
+def _layer_flops(rc, li):
+    """Flops of ``layer<li>`` with the regions nested in it."""
+    r = f"layer{li}"
+    return sum(c.flops for k, c in rc.regions.items()
+               if k == r or k.startswith(r + "/"))
+
+
+@pytest.fixture(scope="module")
+def train_counts():
+    """Reduced stablelm-1.6b: its forward and one train step (null plan and
+    every layer remat), counted on the meta device."""
+    model = build(get_config("stablelm-1.6b").reduced())
+    params = model.init(0, dtype=torch.float32, device="cpu")
+    opt = adamw.init_state(params)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 256, size=(2, 17)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    fwd = counters.collect(
+        lambda p, b: model.forward(p, b, null_plan()), params, batch)
+    steps = {name: counters.collect(trainer.make_train_step(model, plan),
+                                    params, opt, batch)
+             for name, plan in (("null", null_plan()),
+                                ("remat", default_plan(kind="train")))}
+    return model, params, opt, batch, fwd, steps
+
+
+def test_train_step_counts_backward_per_layer(train_counts):
+    """Each layer's flops in a train step are 2.5-3.5x its forward's (the
+    backward's products are twice the forward's); with every layer remat
+    the forward is counted again (3.5-4.5x), under the same regions."""
+    model, *_, fwd, steps = train_counts
+    assert "optimizer" in steps["null"].regions
+    for li in range(model.cfg.n_layers):
+        ratio = _layer_flops(steps["null"], li) / _layer_flops(fwd, li)
+        assert 2.5 <= ratio <= 3.5, (li, ratio)
+        ratio = _layer_flops(steps["remat"], li) / _layer_flops(fwd, li)
+        assert 3.5 <= ratio <= 4.5, (li, ratio)
+    assert set(steps["remat"].regions) == set(steps["null"].regions)
+    assert set(fwd.regions) | {"optimizer"} >= set(steps["null"].regions)
+
+
+def test_remat_recompute_enters_the_forwards_regions(train_counts):
+    """discover_regions of a train step: the remat plan's recompute, which
+    runs inside the backward, enters the forward's region paths and no
+    other."""
+    model, params, opt, batch, *_ = train_counts
+    found = {name: discover_regions(trainer.make_train_step(model, plan),
+                                    params, opt, batch)
+             for name, plan in (("null", null_plan()),
+                                ("remat", default_plan(kind="train")))}
+    assert found["remat"] == found["null"]
+    assert "layer1/mlp" in found["null"] and "optimizer" in found["null"]
+
+
+def test_grad_free_count_is_the_dispatch_count(engines):
+    """A step without a backward counts exactly what the dispatch mode
+    alone counts under no_grad — the count the serve loop's tree features
+    were built on."""
+    _, eng, _ = engines
+    args = counters.to_meta(eng._step_args(eng._spec_depth))
+    mode = counters.CountingMode()
+    counters._active.append(mode)
+    try:
+        with torch.no_grad(), mode:
+            eng._pool_step(*args)
+    finally:
+        counters._active.pop()
+    rc = counters.collect(eng._pool_step, *args)
+    assert rc.total == mode.total and rc.regions == dict(mode.regions)
 
 
 @pytest.fixture(scope="module")

@@ -16,7 +16,11 @@ import torch
 import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                               "repro_torch.")]
-assert "repro_torch.serve.graphs" in mods, mods
+for m in ("repro_torch.serve.graphs", "repro_torch.optim.adamw",
+          "repro_torch.optim.schedule", "repro_torch.data.pipeline",
+          "repro_torch.train.checkpoint", "repro_torch.train.elastic",
+          "repro_torch.train.trainer", "repro_torch.launch.train"):
+    assert m in mods, (m, mods)
 for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
@@ -25,10 +29,12 @@ print(len(mods))
 if not torch.cuda.is_available():
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build
+    from repro_torch.launch.train import main as train_main
     from repro_torch.serve.engine import Engine
     model = build(get_config("stablelm-1.6b").reduced())
     params = model.init(0, device="cpu")
-    for call in (lambda: Engine(model, params), lambda: model.init(0)):
+    for call in (lambda: Engine(model, params), lambda: model.init(0),
+                 lambda: train_main(["--steps", "1"])):
         try:
             call()
         except RuntimeError as e:
