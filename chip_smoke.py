@@ -19,7 +19,8 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    ``repro_torch.kernels.work``).  ``paged_attention_mq`` is held at
    stablelm-1.6b's heads (the timed config, unchanged since the kernel's
    first version), at qwen3-8b's and h2o-danube-1.8b's GQA widths (HD 128
-   and 80) and at one slot of full length at both, in f32 and bf16, S 1
+   and 80), at qwen2-moe-a2.7b's MHA heads (16 of 128) and at one slot of
+   full length at the two GQA widths, in f32 and bf16, S 1
    and 3, block_k 0 and 8, each call timed with its achieved GB/s; at the
    timed config it is also timed after a ~100 us spin (the timer's
    earlier spin) and its host time per call is measured, torch.profiler
@@ -103,9 +104,32 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    ``CUBLAS_WORKSPACE_CONFIG`` set, 8 steps against 4 + save + restore +
    4 under deterministic algorithms, equal bit for bit.
 
+6. [moe]: qwen2-moe-a2.7b (60 routed experts padded to 64, top 4, 4
+   shared) at full width and depth in bf16 from ``Model.init(seed=0)``,
+   drawn leaf by leaf in bf16 (the peak may exceed the params by at most
+   one leaf).  In f32 on a full-width copy of its first two layers: one
+   paged decode step through the kernel against the gather path (logits
+   and greedy tokens), einsum against scatter dispatch at capacity factor
+   8.0 (the JAX package's 2e-3), and the card's routes against the CPU's
+   on the same inputs (a route may differ only at a near-tie).  The paged
+   engine in bf16 on the serve trace with the einsum and the scatter
+   dispatch, spec_depth 2 and prefill_chunk 256 asked for: every request
+   done, no speculative step, no prefix sharing, every prompt prefilled
+   in one chunk (eagerly: no prefill graph), the paged kernel's launches
+   equal to decode steps x layers, no safe-plan fallback and no leaked
+   page.  ``[graph]``: the MoE decode step (S 1) replayed against its
+   step function.  The decode step counted per region on the meta device
+   (every ``layerN/moe`` and ``shared_mlp`` region, each ``layerN/moe``
+   at least its expert products plus dispatch and combine; nothing
+   launched).  [train-moe]: granite-moe-1b-a400m at full width in bf16,
+   4 steps of B 8 x S 512 from the pipeline: finite ce, aux and grad
+   norms, every weight matrix changed.
+
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits;
-``python3 chip_smoke.py --train`` runs only the [train] phase.
+``python3 chip_smoke.py --train`` runs only the [train] phase, and
+``python3 chip_smoke.py --moe`` only the [moe] phase (after building the
+paged kernel).
 
 Random weights come from a seeded torch.Generator.  The launch counts of
 each serve phase are set to 0 just before it and read just after.  The
@@ -144,9 +168,10 @@ SERVE = dict(max_len=1024, max_slots=8, page_size=16, prefill_chunk=256,
 # paged_attention_mq: (label, B, KVH, G, HD, lengths(S)) at page_size 16
 # and max_pages 64.  The first is the timed config of every PR since the
 # kernel's first (stablelm-1.6b's heads, ragged lengths up to the block
-# table's reach, one zero row); then qwen3-8b's and h2o-danube-1.8b's GQA
-# widths (HD 128 and 80) on the same lengths, and one slot at full length
-# at both, where every split of the table carries live data.
+# table's reach, one zero row); then qwen3-8b's GQA width (HD 128),
+# qwen2-moe-a2.7b's MHA heads (16 of 128) and h2o-danube-1.8b's GQA width
+# (HD 80) on the same lengths, and one slot at full length at qwen3-8b's
+# and h2o-danube-1.8b's, where every split of the table carries live data.
 PAGED_PAGE_SIZE, PAGED_MAX_PAGES = 16, 64
 
 
@@ -161,6 +186,7 @@ def _full(S):
 
 PAGED_SHAPES = [("stablelm-1.6b", 8, 32, 1, 64, _ragged),
                 ("qwen3-8b", 8, 8, 4, 128, _ragged),
+                ("qwen2-moe-a2.7b", 8, 16, 1, 128, _ragged),
                 ("h2o-danube-1.8b", 8, 8, 4, 80, _ragged),
                 ("qwen3-8b-long", 1, 8, 4, 128, _full),
                 ("h2o-danube-1.8b-long", 1, 8, 4, 80, _full)]
@@ -217,6 +243,18 @@ ATTN_EXTRA = [(256, 128, 64, 64, 64, True, 16), (128, 256, 64, 32, 32,
 # [train]: stablelm-1.6b at full width, 12 steps of B 8 x S 512 (4096
 # tokens), AdamW at lr 3e-4 with the warmup-cosine schedule over the 12
 TRAIN = dict(batch=8, seq=512, steps=12, lr=3e-4)
+# [moe]: qwen2-moe-a2.7b served at full width and depth in bf16; its f32
+# checks on a full-width copy of the first two layers.  Einsum against
+# scatter dispatch at capacity factor 8.0: the JAX package's own tolerance
+# (tests/test_impl_equivalence.py), rtol = atol.  A route may differ
+# between the card and the CPU only at a near-tie: the CPU's
+# probabilities at the first differing rank and the next within MOE_TIE.
+# [train-moe]: granite-moe-1b-a400m at full width, 4 steps of B 8 x S 512
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_IMPL_TOL = 2e-3
+MOE_TIE = 1e-5
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+MOE_TRAIN = dict(batch=8, seq=512, steps=4, lr=3e-4)
 ATTN_TIMED = dict(B=8, S=512, H=32, D=64, windows=(0, 128))
 
 
@@ -1469,16 +1507,18 @@ def peak_mib() -> str:
             f"reserved")
 
 
-def paged_graph_phase(torch, model, params, dev, serve=SERVE) -> list:
+def paged_graph_phase(torch, model, params, dev, serve=SERVE,
+                      cases=(0, 2, "chunk")) -> list:
     """[graph] The paged decode step at S = 1 and 3 (7 slots live on
     ragged lengths up to the block table's reach, one parked) and the
     prefill chunk (256 tokens from position 256 of one slot), on random
-    pages: each replay against its step function."""
+    pages: each replay against its step function.  ``cases``: spec depths
+    and "chunk" (an MoE model has S = 1 only and no prefill graph)."""
     from repro_torch.serve.engine import Engine, ServeConfig
     cfg = model.cfg
     rng = np.random.default_rng(12)
     recs = []
-    for depth in (0, 2, "chunk"):
+    for depth in cases:
         eng = Engine(model, params, plan=_plan("paged"), device=dev,
                      serve_cfg=ServeConfig(
                          max_len=serve["max_len"],
@@ -1749,11 +1789,12 @@ def train_phase(torch) -> None:
 
 
 def _train_run(torch, model, plan, opt_cfg, data, batches, label,
-               params=None):
+               params=None, schedule_total=TRAIN["steps"], tag="train"):
     """Train ``model`` from ``Model.init(seed=0)`` (or ``params``) on the
     pipeline's ``batches`` (one step each) with fresh AdamW state; log
-    each step's loss, grad norm, lr and device ms.  Returns (params,
-    state, {"loss", "gnorm", "ms", "peak"}), the peak allocated over the
+    each step's loss, grad norm, lr and device ms (and an MoE model's
+    ce and aux) on ``[tag]`` lines.  Returns (params, state, {"loss",
+    "gnorm", "ce", "aux", "ms", "peak"}), the peak allocated over the
     steps.  Gates: finite losses and grad norms; every weight matrix and
     embedding changed (a norm's scale of 1.0 in bf16 keeps an update under
     half its ulp, 2^-9, rounded away, as the JAX package's bf16 cast
@@ -1769,28 +1810,32 @@ def _train_run(torch, model, plan, opt_cfg, data, batches, label,
               for k, t in _named_leaves(params).items()}
     opt = adamw.init_state(params)
     step_fn = trainer.make_train_step(model, plan, opt_cfg=opt_cfg,
-                                      schedule_total=TRAIN["steps"])
+                                      schedule_total=schedule_total)
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
-    run = {"loss": [], "gnorm": [], "ms": []}
+    run = {"loss": [], "gnorm": [], "ce": [], "aux": [], "ms": []}
     for i, s in enumerate(batches):
         batch = batch_at(data, s, dev)
         (params, opt, m), dms, wall = _event_ms(
             torch, lambda: step_fn(params, opt, batch))
         run["loss"].append(m["loss"].item())
         run["gnorm"].append(m["grad_norm"].item())
+        run["ce"].append(m["ce"].item())
+        run["aux"].append(m["aux"].item())
         run["ms"].append(dms)
-        log(f"[train] {label} step {i:2d} (batch {s}): loss "
-            f"{run['loss'][-1]:.4f} grad_norm {run['gnorm'][-1]:.4f} lr "
-            f"{m['lr'].item():.3e} device {dms:.3f} ms (host wall "
+        moe = (f" (ce {run['ce'][-1]:.4f} aux {run['aux'][-1]:.4f})"
+               if model.cfg.n_experts else "")
+        log(f"[{tag}] {label} step {i:2d} (batch {s}): loss "
+            f"{run['loss'][-1]:.4f}{moe} grad_norm {run['gnorm'][-1]:.4f} "
+            f"lr {m['lr'].item():.3e} device {dms:.3f} ms (host wall "
             f"{wall:.3f} ms)")
     run["peak"] = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(run["loss"])) and all(np.isfinite(run["gnorm"])),
           f"{label}: non-finite loss or grad norm: {run}")
     same = [k for k, t in _named_leaves(params).items()
             if torch.equal(before[k], t.cpu())]
-    log(f"[train] {label}: {len(before) - len(same)}/{len(before)} leaves "
-        f"changed; unchanged: {same or 'none'}")
+    log(f"[{tag}] {label}: {len(before) - len(same)}/{len(before)} "
+        f"leaves changed; unchanged: {same or 'none'}")
     check(not [k for k in same if "norm" not in k],
           f"{label}: a weight matrix or embedding did not change: {same}")
     return params, opt, run
@@ -1940,6 +1985,298 @@ def train_resume_check(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# moe phase: the MoE family at full width
+# ---------------------------------------------------------------------------
+
+
+def _moe_plan(impl: str = ""):
+    """The paged kernel on every attention region, and the MoE dispatch
+    ``impl`` ('' = the default, einsum) under the bare region name the
+    model looks it up by."""
+    from repro_torch.core.policy import RegionConfig
+    plan = _plan("paged")
+    if impl:
+        plan.region_configs["moe"] = RegionConfig(moe_impl=impl)
+    return plan
+
+
+def moe_phase(torch) -> int:
+    """[moe] qwen2-moe-a2.7b at full width and depth in bf16 (phase 6 of
+    the module docstring), then [train-moe].  Returns the paged kernel's
+    launches over the MoE serves (counted from 0 just before them)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import active_param_count, build
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    _free(torch)
+    log(f"[moe] allocated before the phase (earlier phases freed): "
+        f"{_gib(torch.cuda.memory_allocated())}")
+    model = build(get_config(MOE_ARCH))
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in L.tree_leaves(params))
+    largest = max(t.numel() for t in L.tree_leaves(params))
+    log(f"[moe] init {MOE_ARCH} full width and depth ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_experts} experts padded to "
+        f"{cfg.pad_experts_to}, top {cfg.top_k}, {cfg.n_shared_experts} "
+        f"shared): {n_params} params ({active_param_count(cfg)} active) in "
+        f"bf16 in {time.perf_counter() - t0:.2f} s; peak allocated "
+        f"{_gib(torch.cuda.max_memory_allocated())} against "
+        f"{_gib(2 * n_params)} of params (largest leaf {largest} "
+        f"elements)")
+    check(torch.cuda.max_memory_allocated() <= 2 * n_params + 2 * largest,
+          "init's transient exceeded one leaf")
+
+    # f32 checks on a full-width copy of the first two layers
+    cut = dataclasses.replace(cfg, n_layers=2, name=f"{cfg.name}-2-layers")
+    p2 = {"embed": L.tree_map(lambda t: t.float(), params["embed"]),
+          "blocks": L.tree_map(lambda t: t[:2].float(), params["blocks"]),
+          "final_norm": L.tree_map(lambda t: t.float(),
+                                   params["final_norm"])}
+    m2 = build(cut)
+    parity_phase(torch, m2, p2, dev)
+    moe_impl_check(torch, cut, p2, dev)
+    moe_route_check(torch, cut, p2, dev)
+    del m2, p2
+    _free(torch)
+
+    launches = moe_serve_phase(torch, model, params, dev)
+    paged_graph_phase(torch, model, params, dev, cases=(0,))
+    moe_count_check(torch, model, params, dev)
+    del model, params
+    _free(torch)
+    train_moe_phase(torch)
+    log(f"[moe] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def moe_impl_check(torch, cut, params, dev) -> None:
+    """Einsum against scatter dispatch on one forward of two 256-token
+    rows at capacity factor 8.0 (no token dropped), within the JAX
+    package's own tolerance (tests/test_impl_equivalence.py)."""
+    import dataclasses
+    from repro_torch.models.model import build
+    model = build(dataclasses.replace(cut, capacity_factor=8.0))
+    rng = np.random.default_rng(21)
+    toks = torch.as_tensor(rng.integers(0, cut.vocab_size, (2, 256)),
+                           dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        le, ae = model.forward(params, {"tokens": toks}, _moe_plan())
+        ls, as_ = model.forward(params, {"tokens": toks},
+                                _moe_plan("scatter"))
+    err = float((le - ls).abs().max())
+    bad = int(((le - ls).abs() > MOE_IMPL_TOL
+               + MOE_IMPL_TOL * ls.abs()).sum())
+    log(f"[moe] {cut.name} 2 layers f32, capacity factor 8.0, B 2 S 256: "
+        f"einsum vs scatter logits max_abs_err={err:.3e} (max|logit|="
+        f"{float(ls.abs().max()):.3f}; tol {MOE_IMPL_TOL} + {MOE_IMPL_TOL} "
+        f"x |scatter|: {bad} outside), aux {float(ae):.6f} vs "
+        f"{float(as_):.6f}")
+    check(bool(torch.isfinite(le).all()), "einsum logits not finite")
+    check(bad == 0, f"einsum and scatter disagree: {err}")
+
+
+def moe_route_check(torch, cut, params, dev) -> None:
+    """The card's routes (expert indices) against the CPU's on the same
+    f32 inputs and router: a route may differ only where the CPU's
+    probabilities at the first differing rank and the next are within
+    MOE_TIE (a near-tie that rounding may flip)."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((4, 512, cut.d_model)).astype(np.float32)
+    router = params["blocks"]["mlp"]["router"][0]
+    _, idx_card, _ = moe.route(cut, {"router": router},
+                               torch.as_tensor(x, device=dev))
+    router_cpu = router.cpu()
+    _, idx_cpu, _ = moe.route(cut, {"router": router_cpu},
+                              torch.from_numpy(x))
+    logits = (torch.from_numpy(x) @ router_cpu).float()
+    logits[..., cut.n_experts:] = -1e30
+    probs = torch.sort(torch.softmax(logits, -1), -1, descending=True)[0]
+    differ = idx_card.cpu() != idx_cpu
+    rows = differ.any(-1)
+    first = differ.int().argmax(-1, keepdim=True)
+    gaps = (probs.gather(-1, first) - probs.gather(-1, first + 1))[..., 0]
+    gaps = gaps[rows]
+    worst = float(gaps.max()) if gaps.numel() else 0.0
+    log(f"[moe] routes, card vs CPU (f32, layer 0's router, "
+        f"{rows.numel()} tokens x top {cut.top_k}): {int(rows.sum())} "
+        f"tokens differ; CPU gap at the first differing rank, largest "
+        f"{worst:.3e} (a differing route must be a near-tie: below "
+        f"{MOE_TIE})")
+    check(worst < MOE_TIE, f"a route differs at a CPU gap of {worst}")
+
+
+def moe_serve_phase(torch, model, params, dev, serve=SERVE) -> int:
+    """The paged engine in bf16 on the serve trace, with the einsum
+    (default) and the scatter dispatch, spec_depth 2 and prefill_chunk
+    256 asked for.  MoE pins speculation and prefix sharing off and keeps
+    each prompt in one chunk.  Returns the paged kernel's launches over
+    both serves."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.scheduler import Request, RequestState
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    n = serve["n_requests"]
+    plens = rng.integers(serve["prompt"][0], serve["prompt"][1] + 1, n)
+    gens = rng.integers(serve["gen"][0], serve["gen"][1] + 1, n)
+    prompts = [rng.integers(0, cfg.vocab_size, p).astype(np.int32)
+               for p in plens]
+    widths: list = []
+    real = model.paged_prefill_chunk
+
+    def counted(*a, **k):
+        widths.append(int(a[2].shape[1]))
+        return real(*a, **k)
+
+    outs, total = {}, 0
+    model.paged_prefill_chunk = counted
+    try:
+        for impl in ("einsum", "scatter"):
+            eng = Engine(model, params, device=dev,
+                         plan=_moe_plan("" if impl == "einsum" else impl),
+                         serve_cfg=ServeConfig(
+                             max_len=serve["max_len"],
+                             max_slots=serve["max_slots"],
+                             page_size=serve["page_size"],
+                             prefill_chunk=serve["prefill_chunk"],
+                             spec_depth=2))
+            reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=int(g))
+                    for i, (p, g) in enumerate(zip(prompts, gens))]
+            widths.clear()
+            _free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            res = eng.serve(reqs)
+            torch.cuda.synchronize()
+            launched = LAUNCHES["paged_attention_mq"]
+            total += launched
+            s, pool = res["stats"], eng._pool
+            log(f"[moe] serve {cfg.name} bf16 {impl}: {s['n_done']}/{n} "
+                f"done, {s['tokens']} tokens in {s['wall_s']:.3f} s -> "
+                f"{s['tok_per_s']:.1f} tok/s, latency p50 "
+                f"{s['latency_p50_s']*1e3:.1f} ms p99 "
+                f"{s['latency_p99_s']*1e3:.1f} ms, steps={res['steps']} "
+                f"spec_depth resolved={eng.spec_depth_for(eng.plan)} "
+                f"max_depth={res['spec']['max_depth']} prefix sharing="
+                f"{eng.prefix_cache_for(eng.plan)}, prefill chunks="
+                f"{len(widths)} for {n} prompts, paged kernel launches="
+                f"{launched}, pool {pool.hbm_bytes()/2**20:.1f} MiB, "
+                f"fallbacks={res['health']['fallbacks']}, leaked pages="
+                f"{res['page_leaks']}, {graphs_line(eng)}")
+            check(all(r.state is RequestState.DONE for r in reqs),
+                  f"not all requests DONE: {[r.state.value for r in reqs]}")
+            check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+                  "a request stopped short of its budget")
+            check(all(0 <= t < cfg.vocab_size for r in reqs
+                      for t in r.out_tokens), "token outside the vocabulary")
+            check(eng.spec_depth_for(eng.plan) == 0
+                  and res["spec"]["max_depth"] == 0
+                  and res["spec"]["accepted_drafts"] == 0,
+                  "an MoE serve ran a speculative step")
+            check(eng.prefix_cache_for(eng.plan) is False,
+                  "prefix sharing on for MoE")
+            check(sorted(widths) == sorted(p.size - 1 for p in prompts),
+                  f"an MoE prompt was not prefilled in one chunk: {widths}")
+            check(res["health"]["fallbacks"] == 0, "safe-plan fallback ran")
+            check(res["page_leaks"] == 0 and pool.leaked_pages() == 0,
+                  "leaked pages")
+            check(launched == res["steps"] * cfg.n_layers,
+                  f"paged kernel launches {launched} != decode steps "
+                  f"{res['steps']} x {cfg.n_layers} layers")
+            check(not any(isinstance(k, tuple) for k in eng._graphs),
+                  "a prefill chunk graph was captured for MoE")
+            outs[impl] = [r.out_tokens for r in reqs]
+            del eng, pool
+    finally:
+        del model.paged_prefill_chunk
+    same = sum(a == b for a, b in zip(outs["einsum"], outs["scatter"]))
+    log(f"[moe] einsum vs scatter serves: {same}/{n} requests "
+        f"token-identical (bf16 products in other orders; not required)")
+    return total
+
+
+def moe_count_check(torch, model, params, dev, serve=SERVE) -> None:
+    """The full-width bf16 paged decode step counted per region on the
+    meta device: every ``layerN/moe`` and ``layerN/moe/shared_mlp``
+    region present, each ``layerN/moe`` at least its expert products (3
+    x 2·E·C·D·F) plus dispatch and combine (2 x 2·g·E·C·D); counting
+    launches nothing."""
+    from repro_torch.core import counters
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = model.cfg
+    eng = Engine(model, params, plan=_moe_plan(), device=dev,
+                 serve_cfg=ServeConfig(max_len=serve["max_len"],
+                                       max_slots=serve["max_slots"],
+                                       page_size=serve["page_size"]))
+    eng._ensure_pool()
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    rc = counters.collect(eng._pool_step, *eng._step_args(eng._spec_depth))
+    t_count = time.perf_counter() - t0
+    check(dict(LAUNCHES) == before, "counting launched a kernel")
+    g = serve["max_slots"]
+    E, C = moe.n_experts_padded(cfg), moe.capacity(cfg, g)
+    D, F = cfg.d_model, cfg.d_ff
+    experts = 3 * 2 * E * C * D * F
+    least = experts + 2 * 2 * g * E * C * D
+    want = ({f"layer{i}/moe" for i in range(cfg.n_layers)}
+            | {f"layer{i}/moe/shared_mlp" for i in range(cfg.n_layers)})
+    missing = sorted(want - set(rc.regions))
+    check(not missing, f"MoE regions missing from the count: {missing}")
+    flops = [rc.regions[f"layer{i}/moe"].flops for i in range(cfg.n_layers)]
+    shared = rc.regions["layer0/moe/shared_mlp"].flops
+    log(f"[moe] counted the {cfg.name} bf16 paged decode step (B={g}, S=1) "
+        f"on the meta device in {t_count:.2f} s: flops={rc.total.flops:.4e} "
+        f"bytes={rc.total.bytes:.4e}; layerN/moe {min(flops):.4e}-"
+        f"{max(flops):.4e} flops = {min(flops) / experts:.4f}-"
+        f"{max(flops) / experts:.4f} x the expert products 3 x 2·E·C·D·F "
+        f"(E {E}, C {C}, D {D}, F {F}: {experts:.4e}), dispatch and "
+        f"combine {least - experts:.4e}; layer0/moe/shared_mlp "
+        f"{shared:.4e}; top regions "
+        + ", ".join(f"{r} {f:.3e}" for r, f in rc.top_regions("flops", 4)))
+    check(min(flops) >= least,
+          f"a layerN/moe region counts {min(flops)} < {least}")
+    del eng
+
+
+def train_moe_phase(torch) -> None:
+    """[train-moe] granite-moe-1b-a400m at full width in bf16, B 8 x S 512
+    from the pipeline, 4 steps under the null plan: finite ce, aux and
+    grad norms; the step's device ms and the peak."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import null_plan
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import build
+    from repro_torch.optim import adamw
+    model = build(get_config(MOE_TRAIN_ARCH))
+    cfg = model.cfg
+    B, S, steps = MOE_TRAIN["batch"], MOE_TRAIN["seq"], MOE_TRAIN["steps"]
+    data = DataConfig(cfg.vocab_size, seq_len=S, global_batch=B, seed=0)
+    params, opt, run = _train_run(
+        torch, model, null_plan(), adamw.AdamWConfig(lr=MOE_TRAIN["lr"]),
+        data, range(steps), f"{MOE_TRAIN_ARCH} null plan",
+        schedule_total=steps, tag="train-moe")
+    med = float(np.median(run["ms"][1:]))
+    log(f"[train-moe] {MOE_TRAIN_ARCH} full width bf16, B {B} S {S}: "
+        f"median step {med:.3f} ms over steps 2-{steps} -> "
+        f"{B * S / med * 1e3:.1f} tok/s; ce {run['ce']}, aux {run['aux']}; "
+        f"peak allocated {_gib(run['peak'])}")
+    check(all(np.isfinite(run["ce"])) and all(np.isfinite(run["aux"])),
+          f"non-finite ce or aux: {run}")
+    check(all(a > 0 for a in run["aux"]), "the aux loss is not positive")
+    del params, opt
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_all(torch) -> None:
@@ -2020,6 +2357,14 @@ def main() -> int:
         log(f"[card] {card_line()}")
         train_phase(torch)
         return 0
+    if sys.argv[1:] == ["--moe"]:
+        from repro_torch.kernels import cuda_build
+        from repro_torch.kernels import paged_attention as pa
+        log(f"[card] {card_line()}")
+        cuda_build.build("paged_attention")
+        pa.build()
+        moe_phase(torch)
+        return 0
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -2073,6 +2418,7 @@ def main() -> int:
                   == launches[k], f"{k}: calls by shape != launches")
     serve_shape_phase(torch, shape_counts, scan_records)
     train_phase(torch)
+    record["launches_moe"] = moe_phase(torch)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

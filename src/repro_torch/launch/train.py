@@ -6,7 +6,8 @@ else does).  Handles checkpoint/restart (``--resume``), straggler
 telemetry and plan files from the autotuner.  The port trains on one
 device, and there — as the JAX launcher does on one device — any plan,
 a ``--plan`` file included, is replaced by ``null_plan()``: the launcher
-never remats.  Only the dense family trains (ROADMAP queue 1 item 13).
+never remats.  The dense and MoE families train; rwkv6 and zamba2 raise
+(ROADMAP queue 1 item 13).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
       --steps 50 --batch 8 --seq 128 --ckpt-dir run1

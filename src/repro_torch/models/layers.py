@@ -41,9 +41,10 @@ class Spec:
         std = self.scale / math.sqrt(max(fan_in, 1))
         if self.init == "small":
             std = 0.02 * self.scale
-        x = torch.randn(self.shape, generator=gen, dtype=torch.float32,
-                        device=device)
-        return (x * std).to(dtype)
+        # drawn in the target dtype: a leaf's transient is the leaf itself
+        # (qwen2-moe's stacked expert leaves hold 4.4 B elements each)
+        x = torch.empty(self.shape, dtype=dtype, device=device)
+        return x.normal_(0.0, std, generator=gen)
 
 
 def tree_map(fn: Callable, tree: Any):

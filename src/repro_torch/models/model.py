@@ -30,7 +30,7 @@ from repro_torch.models import layers as L
 
 
 def _family_module(cfg: ArchConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models import transformer as m
         return m
     if cfg.family == "ssm":
@@ -40,8 +40,8 @@ def _family_module(cfg: ArchConfig):
         from repro_torch.models import zamba2 as m
         return m
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 items "
-        f"11-12: MoE, enc-dec and VLM)")
+        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item "
+        f"12: enc-dec and VLM)")
 
 
 @dataclasses.dataclass
@@ -75,9 +75,11 @@ class Model:
                                 max_len or batch["tokens"].shape[1])
 
     def decode(self, params, cache, tokens,
-               plan: Optional[RegionPlan] = None):
+               plan: Optional[RegionPlan] = None, **kw):
+        """``kw``: the family's own options (the transformer's
+        ``moe_group``)."""
         return self.mod.decode_step(self.cfg, params, cache, tokens,
-                                    plan or null_plan())
+                                    plan or null_plan(), **kw)
 
     def cache_spec(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16):
@@ -123,14 +125,20 @@ def count_params(cfg: ArchConfig) -> int:
 
 
 def active_param_count(cfg: ArchConfig) -> int:
-    """Params touched per token.  Every ported family is dense in this
-    sense; MoE's active count (shared + top_k of routed) comes with its
-    port (ROADMAP queue 1 item 11), and ``count_params`` raises for it."""
-    return count_params(cfg)
+    """Params touched per token (MoE: shared + top_k of routed)."""
+    total = count_params(cfg)
+    if not cfg.n_experts:
+        return total
+    from repro_torch.models.moe import n_experts_padded
+    e = n_experts_padded(cfg)
+    per_expert = cfg.d_ff * cfg.d_model * (3 if cfg.glu else 2)
+    routed_all = cfg.n_layers * e * per_expert
+    routed_active = cfg.n_layers * cfg.top_k * per_expert
+    return total - routed_all + routed_active
 
 
 def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
-    """6·N·D for training, 2·N_active·D forward-only."""
+    """6·N·D for training, 2·N_active·D forward-only (MoE uses active)."""
     n_active = active_param_count(cfg)
     if shape.kind == "train":
         tokens = shape.global_batch * shape.seq_len
@@ -146,9 +154,11 @@ def params_from_numpy(tree: Any, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = torch.float32) -> Any:
     """The weight bridge: a param tree of numpy arrays (nested dicts under
     the JAX package's keys — ``embed/{tokens,unembed}``, layer-stacked
-    ``blocks/...`` (``{attn,mlp,norm1,norm2}``, rwkv6's ``{tmix,cmix,ln1,
-    ln2}``, zamba2's ``{ssm,norm}``), rwkv6's ``ln_in``, zamba2's unstacked
-    ``shared`` block, ``final_norm``) -> the same tree of
+    ``blocks/...`` (``{attn,mlp,norm1,norm2}``, an MoE layer's ``mlp``
+    holding ``{router,gate,up,down}`` and, with shared experts,
+    ``{shared,shared_gate}``; rwkv6's ``{tmix,cmix,ln1,ln2}``, zamba2's
+    ``{ssm,norm}``), rwkv6's ``ln_in``, zamba2's unstacked ``shared``
+    block, ``final_norm``) -> the same tree of
     tensors on ``device`` in ``dtype`` (``None`` keeps each array's own
     dtype; numpy has no bfloat16, so such arrays come over as float32)."""
     dev = resolve_device(device)

@@ -1,9 +1,8 @@
-"""Generic dense decoder LM (qwen3-8b/32b, stablelm, h2o-danube), on
+"""Generic decoder LM (qwen3-8b/32b, stablelm, h2o-danube; with
+:mod:`repro_torch.models.moe` layers, qwen2-moe and granite-moe), on
 PyTorch.  Parameters are stored layer-stacked (leading ``layers`` axis),
 the JAX package's layout, so its param tree bridges across unchanged
 (:func:`repro_torch.models.model.params_from_numpy`).
-
-Dense families only: MoE is not ported yet (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -16,13 +15,7 @@ from repro_torch.core.policy import RegionPlan
 from repro_torch.core.regions import region
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-
-
-def _require_dense(cfg) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP queue 1 "
-            f"item 11)")
+from repro_torch.models import moe as moe_mod
 
 
 def _stack_spec(spec_tree: Any, n: int) -> Any:
@@ -32,10 +25,9 @@ def _stack_spec(spec_tree: Any, n: int) -> Any:
 
 
 def layer_spec(cfg) -> Any:
-    _require_dense(cfg)
     return {
         "attn": attn.attn_spec(cfg),
-        "mlp": L.mlp_spec(cfg),
+        "mlp": moe_mod.moe_spec(cfg) if cfg.n_experts else L.mlp_spec(cfg),
         "norm1": L.norm_spec(cfg),
         "norm2": L.norm_spec(cfg),
     }
@@ -59,17 +51,19 @@ def _layer_params(blocks: Any, n: int) -> list:
 
 
 def _block_loop(cfg, params, x, plan: RegionPlan, attn_apply,
-                remat: bool = False):
+                moe_group: str = "seq", remat: bool = False):
     """Shared per-layer body of every step (forward, slot decode and
     prefill, paged decode, prefill chunk): norm1 -> attention
     (``attn_apply(li, lp, h)`` returns (out, the layer's new cache)) ->
-    norm2 -> mlp.  Returns (x, {"l<i>": new cache}).  With ``remat`` (the
-    forward's), a layer whose plan entry sets ``remat`` is recomputed in
-    the backward (:func:`repro_torch.core.regions.remat`) when grad mode
-    is on; its cache is None."""
-    _require_dense(cfg)
+    norm2 -> mlp, or MoE grouped by ``moe_group`` ('flat' for decode).
+    Returns (x, {"l<i>": new cache}, the MoE aux losses summed over
+    layers, or None for a dense model).  With ``remat`` (the forward's),
+    a layer whose plan entry sets ``remat`` is recomputed in the backward
+    (:func:`repro_torch.core.regions.remat`) when grad mode is on; its
+    cache is None."""
     layers = _layer_params(params["blocks"], cfg.n_layers)
     new_layers = {}
+    aux_total = None
     for li in range(cfg.n_layers):
         lp = layers[li]
 
@@ -79,32 +73,43 @@ def _block_loop(cfg, params, x, plan: RegionPlan, attn_apply,
                 a, cache = attn_apply(li, lp, h)
                 x = x + a
                 h = L.apply_norm(cfg, lp["norm2"], x)
-                x = x + L.apply_mlp(cfg, lp["mlp"], h, plan)
+                if cfg.n_experts:
+                    y, aux = moe_mod.apply_moe(cfg, lp["mlp"], h, plan,
+                                               group=moe_group)
+                else:
+                    y, aux = L.apply_mlp(cfg, lp["mlp"], h, plan), None
+                x = x + y
                 x = plan.constrain(x, f"layer{li}", ("batch", "seq", "embed"))
-                return x, cache
+                return x, cache, aux
 
         if (remat and torch.is_grad_enabled()
                 and plan.config_for(f"layer{li}").remat):
-            x = regions.remat(lambda h, body=body: body(h)[0], x)
+            x, aux = regions.remat(lambda h, body=body: body(h)[::2], x)
             new_layers[f"l{li}"] = None
         else:
-            x, new_layers[f"l{li}"] = body(x)
-    return x, new_layers
+            x, new_layers[f"l{li}"], aux = body(x)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, new_layers, aux_total
 
 
 def forward(cfg, params, batch, plan: RegionPlan,
             final_logits_only: bool = False):
-    """Full-sequence forward: returns (logits, aux_loss=0).  Layers whose
-    plan entry sets ``remat`` are recomputed in the backward."""
+    """Full-sequence forward: returns (logits, the MoE aux loss summed
+    over layers; 0 for a dense model).  Layers whose plan entry sets
+    ``remat`` are recomputed in the backward."""
     x = L.apply_embed(cfg, params["embed"], batch["tokens"], plan)
-    x, _ = _block_loop(cfg, params, x, plan,
-                       lambda li, lp, h: (attn.apply_attention(
-                           cfg, lp["attn"], h, plan), None), remat=True)
+    x, _, aux = _block_loop(cfg, params, x, plan,
+                            lambda li, lp, h: (attn.apply_attention(
+                                cfg, lp["attn"], h, plan), None),
+                            remat=True)
     x = L.apply_norm(cfg, params["final_norm"], x)
     if final_logits_only:
         x = x[:, -1:]
     logits = L.apply_unembed(cfg, params["embed"], x, plan)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # -- serving: the slot pool -------------------------------------------------
@@ -123,15 +128,19 @@ def init_cache(cfg, batch: int, max_len: int,
     return L.zeros_from_spec(cache_spec(cfg, batch, max_len, dtype), device)
 
 
-def decode_step(cfg, params, cache, tokens, plan: RegionPlan):
-    """tokens: (B, 1) at each row's ``cache['pos']`` -> (logits (B, 1, V),
-    new cache); the K/V caches are written in place."""
+def decode_step(cfg, params, cache, tokens, plan: RegionPlan,
+                moe_group: str = "flat"):
+    """tokens: (B, S) at each row's ``cache['pos']`` -> (logits (B, S, V),
+    new cache); the K/V caches are written in place.  MoE layers route the
+    whole batch as one group, or each row alone (``moe_group='row'``: the
+    slot pool, whose step the JAX package vmaps over single requests)."""
     pos = cache["pos"]
     x = L.apply_embed(cfg, params["embed"], tokens, plan)
-    x, new_layers = _block_loop(
+    x, new_layers, _ = _block_loop(
         cfg, params, x, plan,
         lambda li, lp, h: attn.apply_attention_decode(
-            cfg, lp["attn"], h, cache["layers"][f"l{li}"], pos, plan))
+            cfg, lp["attn"], h, cache["layers"][f"l{li}"], pos, plan),
+        moe_group=moe_group)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.apply_unembed(cfg, params["embed"], x, plan)
     return logits, {"layers": new_layers, "pos": pos + 1}
@@ -143,7 +152,7 @@ def prefill(cfg, params, batch, plan: RegionPlan, max_len: int):
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.apply_embed(cfg, params["embed"], tokens, plan)
-    x, caches = _block_loop(
+    x, caches, _ = _block_loop(
         cfg, params, x, plan,
         lambda li, lp, h: (attn.apply_attention(cfg, lp["attn"], h, plan),
                            attn.prefill_kv(cfg, lp["attn"], h, plan,
@@ -177,11 +186,12 @@ def paged_decode_step(cfg, params, pages, tokens, block_tables, lengths,
     (logits (B, S, V), pages).
     """
     x = L.apply_embed(cfg, params["embed"], tokens, plan)
-    x, _ = _block_loop(
+    x, _, _ = _block_loop(
         cfg, params, x, plan,
         lambda li, lp, h: attn.apply_attention_paged_decode(
             cfg, lp["attn"], h, pages["layers"][f"l{li}"],
-            block_tables, lengths, plan))
+            block_tables, lengths, plan),
+        moe_group="flat")
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.apply_unembed(cfg, params["embed"], x, plan)
     return logits, pages
@@ -201,5 +211,6 @@ def prefill_chunk_step(cfg, params, pages, tokens, block_table, base,
         cfg, params, x, plan,
         lambda li, lp, h: attn.apply_attention_paged_chunk(
             cfg, lp["attn"], h, pages["layers"][f"l{li}"],
-            block_table, base, plan))
+            block_table, base, plan),
+        moe_group="seq")
     return pages

@@ -11,10 +11,11 @@ pool by default: a :class:`PagedKVPool` under a
 fixed shape — inactive slots decode against the null page and their
 samples are masked — so a request that finishes frees its pages at once
 and the next one joins mid-flight.  Prompts prefill in ``prefill_chunk``
-pieces interleaved with pool steps.  The decode attention gathers K/V
-through the block tables (grouped-GQA einsum) by default, or runs the
-paged-attention kernel when the plan sets ``attn_impl='paged'`` on the
-attention region.
+pieces interleaved with pool steps — an MoE prompt always in one piece,
+since capacity groups route by token-group length, as in the JAX engine.
+The decode attention gathers K/V through the block tables (grouped-GQA
+einsum) by default, or runs the paged-attention kernel when the plan sets
+``attn_impl='paged'`` on the attention region.
 
 **Speculative decode** (``spec_depth`` > 0, greedy only): each step
 drafts ``spec_depth`` tokens per slot by n-gram lookup over the slot's own
@@ -56,7 +57,7 @@ the JAX package, and on ``cuda`` the three hot steps run as CUDA graphs
 (:mod:`repro_torch.serve.graphs`), the counterpart of the JAX package's
 ``jax.jit(...).compile()``: the paged decode step (one graph per step-cache
 key, i.e. per resolved knobs and S = D+1), the paged prefill chunk (one
-graph per chunk width, ``prefill_chunk`` > 0, ``base`` a device scalar) and
+graph per chunk width when prompts are chunked, ``base`` a device scalar) and
 the slot-pool decode step with its pool update.  A graph is captured at
 its key's first use, also mid-serve after a replan or the safe-plan
 fallback, without touching live state; a failed capture raises.  At
@@ -685,9 +686,12 @@ class Engine:
         model = self.model
         depth = self.spec_depth_for(plan)
         splan = self._plan_with_scan_mode(plan, self.scan_mode_for(plan))
+        # each slot is a single-request call in the JAX package's vmap, so
+        # an MoE layer routes each slot as a group of its own
+        kw = {"moe_group": "row"} if model.cfg.n_experts else {}
 
         def forward(params, pool, tokens, active):
-            logits, caches = model.decode(params, pool, tokens, splan)
+            logits, caches = model.decode(params, pool, tokens, splan, **kw)
             return (*self._guard(logits, active), caches)
 
         return self._sampled(forward), depth, 1
@@ -846,15 +850,24 @@ class Engine:
                             warmup=warmup)
         return self._graph_outputs(graph(toks, act), gen)
 
+    def _chunked_prefill(self) -> bool:
+        """Whether the paged pool prefills prompts in ``prefill_chunk``
+        pieces.  Never for MoE: capacity groups route by token-group
+        length, so a prompt split into chunks would route (and drop)
+        tokens differently than whole-prompt prefill, as the JAX engine
+        rules."""
+        return bool(self.cfg.prefill_chunk) and not self.model.cfg.n_experts
+
     def _paged_prefill(self, chunk, slot: int, base: int) -> None:
         """Write one prefill chunk of ``slot``'s prompt (host tokens, C of
         them, from absolute position ``base``) into its pages.  On ``cuda``
-        with ``prefill_chunk`` > 0 every chunk has the width C, and one
-        graph per width serves every slot and chunk index: the block-table
-        row and ``base`` are static inputs, ``base`` a device scalar
-        (whole-prompt prefill, one width per prompt, runs eagerly)."""
+        with chunked prefill every chunk has the width C, and one graph per
+        width serves every slot and chunk index: the block-table row and
+        ``base`` are static inputs, ``base`` a device scalar (whole-prompt
+        prefill — MoE's always — has one width per prompt and runs
+        eagerly)."""
         pool, dev = self._pool, self.device
-        if not (self._use_graphs() and self.cfg.prefill_chunk):
+        if not (self._use_graphs() and self._chunked_prefill()):
             self.model.paged_prefill_chunk(
                 self.params, pool.pages,
                 torch.as_tensor(chunk[None], device=dev),
@@ -1563,7 +1576,8 @@ class Engine:
                     req = prefills[0]
                     slot = req.slot
                     feed = req.token_history()[:-1]
-                    C = self.cfg.prefill_chunk or feed.size
+                    C = (self.cfg.prefill_chunk if self._chunked_prefill()
+                         else feed.size)
                     chunk = feed[req.prefill_pos:req.prefill_pos + C]
                     true_c = chunk.size
                     if true_c < C:

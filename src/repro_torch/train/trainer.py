@@ -14,9 +14,11 @@
 * AdamW from :mod:`repro_torch.optim.adamw`, in place, under the
   ``optimizer`` region.
 
-Only the dense family trains: the recurrent and hybrid models' scans run
-on hand-written kernels (and plain versions) that have no backward, and
-their differentiable scans are not ported yet (ROADMAP queue 1 item 13).
+The dense and MoE families train (an MoE model's load-balancing aux loss
+joins the loss at ``AUX_WEIGHT``); the recurrent and hybrid models' scans
+run on hand-written kernels (and plain versions) that have no backward,
+and their differentiable scans are not ported yet (ROADMAP queue 1 item
+13).
 """
 from __future__ import annotations
 
@@ -64,8 +66,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return _CrossEntropy.apply(logits, labels.long())
 
 
-def _require_dense(model: Model) -> None:
-    if model.cfg.family != "dense":
+def _require_trainable(model: Model) -> None:
+    if model.cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{model.cfg.name}: training the {model.cfg.family!r} family is "
             f"not ported yet (ROADMAP queue 1 item 13)")
@@ -75,7 +77,7 @@ def make_loss_fn(model: Model, plan: Optional[RegionPlan], unroll: bool):
     """loss_fn(params, batch) -> (loss, {"ce", "aux"}).  ``unroll`` is
     accepted for the JAX package's signature and has no effect: eager
     PyTorch runs the layers one by one either way."""
-    _require_dense(model)
+    _require_trainable(model)
     plan = plan or null_plan()
 
     def loss_fn(params, batch):

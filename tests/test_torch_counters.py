@@ -338,3 +338,29 @@ def test_smt_budget_is_hoppers_shared_memory():
     assert smt.aligned((32, 128)) and not smt.aligned((24, 128))
     assert smt.stall_hiding_model(1.0, 2.0, 4) < smt.stall_hiding_model(
         1.0, 2.0, 1)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
+def test_moe_decode_step_counts_match_jax(arch):
+    """The paged decode step of a reduced MoE model, counted by both
+    engines: the same region set (``layerN/moe`` and, with shared experts,
+    ``layerN/moe/shared_mlp``), and each MoE region's flops within 25% of
+    the JAX package's."""
+    jmodel = jbuild(jget_config(arch).reduced())
+    jparams = jmodel.init(jax.random.PRNGKey(0), dtype=jnp.float32)
+    kw = dict(max_len=32, max_slots=4, page_size=8, online_retrain=True)
+    jeng = JEngine(jmodel, jparams, serve_cfg=JServeConfig(**kw))
+    jeng._ensure_pool()
+    eng = Engine(build(get_config(arch).reduced()),
+                 params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                   device="cpu"),
+                 serve_cfg=ServeConfig(**kw), device="cpu")
+    eng._ensure_pool()
+    jrc, rc = jeng._pool_rc, eng._pool_rc
+    assert set(rc.regions) == set(jrc.regions)
+    moe_regions = sorted(r for r in rc.regions if "/moe" in r)
+    shared = get_config(arch).n_shared_experts
+    assert len(moe_regions) == 2 * (2 if shared else 1), moe_regions
+    for r in moe_regions:
+        f, jf = rc.regions[r].flops, jrc.regions[r].flops
+        assert abs(f - jf) <= 0.25 * jf, (r, f, jf)

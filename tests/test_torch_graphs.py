@@ -212,7 +212,17 @@ def test_paged_step_replay_equals_direct_call(standin, depth):
     lengths and one parked: tokens, finite flags and every page but the
     null sink equal the step function's, and the static inputs keep their
     buffers across calls."""
-    _, _, model, params = _models("stablelm-1.6b")
+    _check_paged_replay("stablelm-1.6b", depth)
+
+
+def test_moe_paged_step_replay_equals_direct_call(standin):
+    """The same for an MoE model's decode step (granite-moe-1b-a400m, the
+    einsum dispatch; MoE pins speculation off, so S = 1 only)."""
+    _check_paged_replay("granite-moe-1b-a400m", 0)
+
+
+def _check_paged_replay(arch, depth):
+    _, _, model, params = _models(arch)
     eng = Engine(model, params, plan=_paged_plan(), device="cpu",
                  serve_cfg=ServeConfig(max_len=40, max_slots=5,
                                        page_size=8, spec_depth=depth))
@@ -396,6 +406,18 @@ def test_graph_path_matches_jax(standin, arch):
     if eng._paged:
         want.add(("prefill_chunk", 8))
     assert keys == want
+
+
+def test_moe_graph_path_matches_jax(standin):
+    """An MoE model on the paged pool through the graph path, with
+    ``prefill_chunk`` 8 and ``spec_depth`` 2 asked for: tokens equal the
+    JAX engine's, the decode step replays one graph (S = 1), and every
+    prompt prefills eagerly in one chunk, so no prefill graph is built."""
+    eng = _serve_pair("granite-moe-1b-a400m", max_len=40, max_slots=3,
+                      prefill_chunk=8, spec_depth=2)
+    assert set(eng._graphs) == {eng._pool_step}
+    graph = eng._graphs[eng._pool_step]
+    assert graph.inputs.tensors[0].shape == (3, 1)
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "rwkv6-3b"])
@@ -616,6 +638,51 @@ def test_gpu_capture_mid_serve_leaves_live_slots_unchanged(monkeypatch,
     assert res["spec"]["max_depth"] == 2
     assert len([k for k in eng._graphs if callable(k)]) == 2
     assert held and all(held)
+
+
+@pytest.mark.gpu
+def test_gpu_moe_decode_replay_equals_eager_step():
+    """The MoE paged decode step's graph against its step function on the
+    card (reduced granite-moe-1b-a400m, the einsum and the scatter
+    dispatch), on the same inputs from the same pages: equal tokens and
+    finite flags, every page but the null sink equal bit for bit, at the
+    capture and at a plain replay."""
+    dev = _cuda()
+    model, params = _cuda_model("granite-moe-1b-a400m", dev)
+    rng = np.random.default_rng(11)
+    for impl in ("einsum", "scatter"):
+        plan = RegionPlan(region_configs={
+            "layer/attn": RegionConfig(attn_impl="paged"),
+            "moe": RegionConfig(moe_impl=impl)})
+        eng = Engine(model, params, plan=plan, device=dev,
+                     serve_cfg=ServeConfig(max_len=64, max_slots=4,
+                                           page_size=8))
+        eng._ensure_pool()
+        live = eng._pool.pages
+        _random_state(live, 10)
+        B, MP = eng._pool.n_slots, eng._pool.max_pages_per_slot
+        bt = (1 + np.arange(B * MP, dtype=np.int32)).reshape(B, MP)
+        lengths = np.array([50, 7, 33, 0], np.int32)
+        act = lengths > 0
+        bt[~act] = 0
+        toks = rng.integers(0, 256, (B, 1)).astype(np.int32)
+        start = _clone(live)
+        for run in range(2):
+            want = eng._pool_step(params, live, *(
+                torch.as_tensor(a, device=dev)
+                for a in (toks, bt, lengths, act)), None)
+            want_pages = [t[1:].clone() for t in L.tree_leaves(live)]
+            for t, s0 in zip(L.tree_leaves(live), start):
+                t.copy_(s0)
+            got = eng._paged_decode(toks, bt, lengths, act, None)
+            torch.cuda.synchronize()
+            _assert_equal([t.cpu() for t in got], [t.cpu() for t in want],
+                          f"{impl}: tokens, finite")
+            _assert_equal([t[1:] for t in L.tree_leaves(live)], want_pages,
+                          f"{impl}: pages after replay {run}")
+            for t, s0 in zip(L.tree_leaves(live), start):
+                t.copy_(s0)
+        assert len(eng._graphs) == 1
 
 
 @pytest.mark.gpu

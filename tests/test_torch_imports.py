@@ -19,7 +19,8 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in ("repro_torch.serve.graphs", "repro_torch.optim.adamw",
           "repro_torch.optim.schedule", "repro_torch.data.pipeline",
           "repro_torch.train.checkpoint", "repro_torch.train.elastic",
-          "repro_torch.train.trainer", "repro_torch.launch.train"):
+          "repro_torch.train.trainer", "repro_torch.launch.train",
+          "repro_torch.models.moe"):
     assert m in mods, (m, mods)
 for m in mods:
     importlib.import_module(m)

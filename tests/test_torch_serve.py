@@ -213,16 +213,16 @@ def test_features_outside_the_slice_raise(models, monkeypatch):
     ROADMAP item — never silently dropped.  (The slot pool, paged='off',
     and the static generate() are ported: tests/test_torch_slot_serve.py;
     the decision tree and the online loop: tests/test_torch_autotune_serve
-    .py.)  A tensor-parallel degree clamps down to the devices, as in the
-    JAX package, so it raises only where more than one device remains."""
+    .py; MoE: tests/test_torch_moe.py.)  A tensor-parallel degree clamps
+    down to the devices, as in the JAX package, so it raises only where
+    more than one device remains."""
     _, _, model, tparams = models
     bad = [dict(telemetry=True), dict(trace_out="t.json")]
     for kw in bad:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(model, tparams, serve_cfg=ServeConfig(**kw), device="cpu")
-    for arch in ("qwen2-moe-a2.7b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(get_config(arch).reduced())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build(get_config("whisper-large-v3").reduced())
     with pytest.raises(ValueError, match="paged KV unsupported"):
         Engine(build(get_config("rwkv6-3b").reduced()), {},
                serve_cfg=ServeConfig(paged="on"), device="cpu").serve([])
