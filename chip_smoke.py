@@ -125,11 +125,40 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    4 steps of B 8 x S 512 from the pipeline: finite ce, aux and grad
    norms, every weight matrix changed.
 
+7. [vlm]: internvl2-26b's LM backbone (48 layers, GQA 48/8 heads of 128)
+   at full width and depth in bf16 from ``Model.init(seed=0)``.  In f32
+   on a full-width copy of its first two layers: one paged decode step
+   through the kernel against the gather path (logits and greedy tokens).
+   The paged engine in bf16 on the serve trace of phase 3 at spec_depth 0
+   and 2: every request done, the paged kernel's launches equal to decode
+   steps x 48 in each serve, no safe-plan fallback, no leaked page.
+   ``[graph]``: its decode step at S 1 and 3 replayed against its step
+   function.
+
+8. [whisper]: whisper-large-v3 (32 + 32 layers, d_model 1280, 20 heads)
+   at full width in bf16.  In f32: ``prefill`` of 4 tokens and 4
+   teacher-forced ``decode_step``s against ``forward`` on random frames.
+   16 requests of a 4-token prompt served through ``Engine.generate`` by
+   the launcher's static mode (8 rows a group, max_len 448, zero frames):
+   every request done with its budget of tokens, and no hand-written
+   kernel launched (whisper's attention is the einsum path in both
+   packages).  A group's prefill timed by CUDA events, 8 of its decode
+   steps under torch.profiler (the card's busy share), and one decode
+   step timed by CUDA events and counted per region on the meta device
+   (the cross-attention's K/V projection of the encoder output).  [train-whisper]: B 2 x S 448 with zero frames, 3
+   steps under the null plan and 2 with every ``enc``/``dec`` layer remat
+   (step 0's loss equal), then 2 remat steps at B 4 (the null plan at B 4
+   does not fit: its saved activations alone, counted on the meta device,
+   are ~66 GB): finite losses and grad norms, the share of the bf16 peak
+   by ``model_flops`` and by the meta count of a step, and one null-plan
+   step under torch.profiler.
+
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits;
-``python3 chip_smoke.py --train`` runs only the [train] phase, and
-``python3 chip_smoke.py --moe`` only the [moe] phase (after building the
-paged kernel).
+``python3 chip_smoke.py --train`` runs only the [train] phase,
+``python3 chip_smoke.py --moe`` only the [moe] phase and ``--vlm`` only
+the [vlm] phase (each after building the paged kernel), and
+``--whisper`` only the [whisper] phase (no kernel build).
 
 Random weights come from a seeded torch.Generator.  The launch counts of
 each serve phase are set to 0 just before it and read just after.  The
@@ -170,8 +199,9 @@ SERVE = dict(max_len=1024, max_slots=8, page_size=16, prefill_chunk=256,
 # kernel's first (stablelm-1.6b's heads, ragged lengths up to the block
 # table's reach, one zero row); then qwen3-8b's GQA width (HD 128),
 # qwen2-moe-a2.7b's MHA heads (16 of 128) and h2o-danube-1.8b's GQA width
-# (HD 80) on the same lengths, and one slot at full length at qwen3-8b's
-# and h2o-danube-1.8b's, where every split of the table carries live data.
+# (HD 80) and internvl2-26b's (G 6, whose last row chunk is part-filled)
+# on the same lengths, and one slot at full length at qwen3-8b's and
+# h2o-danube-1.8b's, where every split of the table carries live data.
 PAGED_PAGE_SIZE, PAGED_MAX_PAGES = 16, 64
 
 
@@ -188,6 +218,7 @@ PAGED_SHAPES = [("stablelm-1.6b", 8, 32, 1, 64, _ragged),
                 ("qwen3-8b", 8, 8, 4, 128, _ragged),
                 ("qwen2-moe-a2.7b", 8, 16, 1, 128, _ragged),
                 ("h2o-danube-1.8b", 8, 8, 4, 80, _ragged),
+                ("internvl2-26b", 8, 8, 6, 128, _ragged),
                 ("qwen3-8b-long", 1, 8, 4, 128, _full),
                 ("h2o-danube-1.8b-long", 1, 8, 4, 80, _full)]
 # recurrent serves: prompts whose fed part (prompt[:-1]) is a multiple of
@@ -256,6 +287,17 @@ MOE_TIE = 1e-5
 MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
 MOE_TRAIN = dict(batch=8, seq=512, steps=4, lr=3e-4)
 ATTN_TIMED = dict(B=8, S=512, H=32, D=64, windows=(0, 128))
+# [vlm]: internvl2-26b's backbone served at full width and depth in bf16
+# on the SERVE trace; its f32 check on a full-width copy of two layers
+VLM_ARCH = "internvl2-26b"
+# [whisper]: whisper-large-v3 served through Engine.generate: 4-token
+# prompts (the decoder's task prefix), 8 rows a group, max_len 448 (the
+# decoder's context); [train-whisper]: B 2 x S 448 (null plan and remat),
+# then remat at B 4
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_SERVE = dict(n_requests=16, prompt=4, gen=(32, 64), slots=8,
+                     max_len=448)
+WHISPER_TRAIN = dict(batch=2, seq=448, steps=3, lr=3e-4, remat_batch=4)
 
 
 class SmokeFailure(RuntimeError):
@@ -425,7 +467,7 @@ def kernel_phase(torch) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as pa
     ps, MP = PAGED_PAGE_SIZE, PAGED_MAX_PAGES
-    record, timed = None, {}
+    record, timed, vlm = None, {}, {}
     for label, B, KVH, G, HD, lens in PAGED_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -467,6 +509,8 @@ def kernel_phase(torch) -> dict:
                     if label == PAGED_SHAPES[0][0] and dname == "bfloat16" \
                             and bk == 0:
                         timed[S] = (ms, err, args, bound_ms, bound_by, nbytes)
+                    if label == VLM_ARCH and dname == "bfloat16" and bk == 0:
+                        vlm[S] = (ms, bound_ms)
     # the timed config: the main path's decode call (S 1) and verify (S 3)
     ms, err, args, bound_ms, bound_by, nbytes = timed[1]
     ms_short = time_ms(torch, lambda: ops.paged_attention_mq(*args),
@@ -500,6 +544,8 @@ def kernel_phase(torch) -> dict:
         "kernels_per_call": n_kernels,
         "shape": f"bf16 B={B} S=1 KVH={KVH} G={G} HD={HD} page_size={ps} "
                  f"max_pages={MP} lengths={lengths}",
+        "ms_vlm": vlm[1][0], "ms_vlm_s3": vlm[3][0],
+        "bound_ms_vlm": vlm[1][1],
     }
     log(f"[kernel] timed config {record['shape']}: kernel {ms:.4f} ms "
         f"({record['gb_per_s']:.1f} GB/s, {bound_ms / ms:.1%} of the "
@@ -1789,9 +1835,11 @@ def train_phase(torch) -> None:
 
 
 def _train_run(torch, model, plan, opt_cfg, data, batches, label,
-               params=None, schedule_total=TRAIN["steps"], tag="train"):
+               params=None, schedule_total=TRAIN["steps"], tag="train",
+               extra=None):
     """Train ``model`` from ``Model.init(seed=0)`` (or ``params``) on the
-    pipeline's ``batches`` (one step each) with fresh AdamW state; log
+    pipeline's ``batches`` (one step each, each batch with the tensors of
+    ``extra`` added: a stubbed frontend's input) with fresh AdamW state; log
     each step's loss, grad norm, lr and device ms (and an MoE model's
     ce and aux) on ``[tag]`` lines.  Returns (params, state, {"loss",
     "gnorm", "ce", "aux", "ms", "peak"}), the peak allocated over the
@@ -1815,7 +1863,7 @@ def _train_run(torch, model, plan, opt_cfg, data, batches, label,
     torch.cuda.reset_peak_memory_stats()
     run = {"loss": [], "gnorm": [], "ce": [], "aux": [], "ms": []}
     for i, s in enumerate(batches):
-        batch = batch_at(data, s, dev)
+        batch = dict(batch_at(data, s, dev), **(extra or {}))
         (params, opt, m), dms, wall = _event_ms(
             torch, lambda: step_fn(params, opt, batch))
         run["loss"].append(m["loss"].item())
@@ -1841,10 +1889,12 @@ def _train_run(torch, model, plan, opt_cfg, data, batches, label,
     return params, opt, run
 
 
-def _profile_step(torch, fn, top: int = 10) -> None:
+def _profile_step(torch, fn, top: int = 10, tag: str = "train-profile",
+                  what: str = "one step") -> None:
     """Run ``fn`` once under ``torch.profiler`` and log the card's busy
     share of its wall time, the device time in cuBLAS's products and in
-    everything else, and the ``top`` kernels by device time."""
+    everything else, and the ``top`` kernels by device time, on
+    ``[tag]`` lines."""
     import collections
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.regions import REGION_PREFIX
@@ -1872,13 +1922,13 @@ def _profile_step(torch, fn, top: int = 10) -> None:
                if any(k in name.lower()
                       for k in ("gemm", "nvjet", "cutlass", "xmma")))
     total = sum(ms for ms, _ in by_name.values())
-    log(f"[train-profile] one step: wall {wall:.3f} ms (profiled), device "
+    log(f"[{tag}] {what}: wall {wall:.3f} ms (profiled), device "
         f"busy {busy:.3f} ms = {100 * busy / wall:.1f}%, {len(dev)} kernels "
         f"and copies; cuBLAS products {gemm:.3f} ms, the rest "
         f"{total - gemm:.3f} ms")
     for name, (ms, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:top]:
-        log(f"[train-profile] device {ms:9.3f} ms {n:6d}x  {name[:90]}")
+        log(f"[{tag}] device {ms:9.3f} ms {n:6d}x  {name[:90]}")
 
 
 def _named_leaves(tree, prefix="") -> dict:
@@ -2004,7 +2054,6 @@ def moe_phase(torch) -> int:
     """[moe] qwen2-moe-a2.7b at full width and depth in bf16 (phase 6 of
     the module docstring), then [train-moe].  Returns the paged kernel's
     launches over the MoE serves (counted from 0 just before them)."""
-    import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.models import layers as L
     from repro_torch.models.model import active_param_count, build
@@ -2033,11 +2082,7 @@ def moe_phase(torch) -> int:
           "init's transient exceeded one leaf")
 
     # f32 checks on a full-width copy of the first two layers
-    cut = dataclasses.replace(cfg, n_layers=2, name=f"{cfg.name}-2-layers")
-    p2 = {"embed": L.tree_map(lambda t: t.float(), params["embed"]),
-          "blocks": L.tree_map(lambda t: t[:2].float(), params["blocks"]),
-          "final_norm": L.tree_map(lambda t: t.float(),
-                                   params["final_norm"])}
+    cut, p2 = _two_layers(torch, cfg, params)
     m2 = build(cut)
     parity_phase(torch, m2, p2, dev)
     moe_impl_check(torch, cut, p2, dev)
@@ -2276,6 +2321,288 @@ def train_moe_phase(torch) -> None:
     del params, opt
 
 
+def _two_layers(torch, cfg, params):
+    """A full-width copy of the first two layers of a transformer's params
+    in f32, and its config."""
+    import dataclasses
+    from repro_torch.models import layers as L
+    cut = dataclasses.replace(cfg, n_layers=2, name=f"{cfg.name}-2-layers")
+    return cut, {"embed": L.tree_map(lambda t: t.float(), params["embed"]),
+                 "blocks": L.tree_map(lambda t: t[:2].float(),
+                                      params["blocks"]),
+                 "final_norm": L.tree_map(lambda t: t.float(),
+                                          params["final_norm"])}
+
+
+def vlm_phase(torch) -> int:
+    """[vlm] internvl2-26b's backbone at full width and depth in bf16
+    (phase 7 of the module docstring).  Returns the paged kernel's
+    launches over its two serves (counted from 0 just before them)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    _free(torch)
+    model = build(get_config(VLM_ARCH))
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in L.tree_leaves(params))
+    log(f"[vlm] init {VLM_ARCH} full width and depth ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}): {n_params} params in bf16 in "
+        f"{time.perf_counter() - t0:.2f} s; peak allocated "
+        f"{_gib(torch.cuda.max_memory_allocated())} against "
+        f"{_gib(2 * n_params)} of params")
+    cut, p2 = _two_layers(torch, cfg, params)
+    parity_phase(torch, build(cut), p2, dev)
+    del p2
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    launches = serve_phase(torch, model, params, dev)["paged_attention_mq"]
+    log(f"[vlm] paged kernel launches over both serves: {launches}; peak "
+        f"{peak_mib()} (params {2 * n_params / 2**20:.1f} MiB)")
+    paged_graph_phase(torch, model, params, dev, cases=(0, 2))
+    del model, params
+    _free(torch)
+    log(f"[vlm] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def whisper_phase(torch) -> None:
+    """[whisper] whisper-large-v3 at full width (phase 8 of the module
+    docstring), then [train-whisper]."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.scheduler import Request, RequestState
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    _free(torch)
+    model = build(get_config(WHISPER_ARCH))
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    params = model.init(0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in L.tree_leaves(params))
+    log(f"[whisper] init {WHISPER_ARCH} full width ({cfg.n_enc_layers} + "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"of {cfg.resolved_head_dim}, enc_len {cfg.enc_len}, vocab "
+        f"{cfg.vocab_size}): {n_params} params in bf16 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    whisper_consistency_check(torch, model, params, dev)
+
+    sv = WHISPER_SERVE
+    rng = np.random.default_rng(0)
+    gens = rng.integers(sv["gen"][0], sv["gen"][1] + 1, sv["n_requests"])
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (sv["n_requests"], sv["prompt"])).astype(np.int32)
+    eng = Engine(model, params, device=dev, serve_cfg=ServeConfig(
+        max_len=sv["max_len"], max_slots=sv["slots"]))
+    zeros = torch.zeros((sv["slots"], cfg.enc_len, cfg.d_model),
+                        dtype=torch.bfloat16, device=dev)
+    eng.generate(prompts[:sv["slots"]], 2, {"frames": zeros})   # warm-up
+    reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=int(g))
+            for i, (p, g) in enumerate(zip(prompts, gens))]
+    before = dict(LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    res = run_static(eng, reqs, sv["slots"])
+    torch.cuda.synchronize()
+    s = res["stats"]
+    log(f"[whisper] serve {cfg.name} bf16 through Engine.generate "
+        f"(launch.serve's static mode, {sv['slots']} rows a group, zero "
+        f"frames, max_len {sv['max_len']}): {s['n_done']}/"
+        f"{sv['n_requests']} done, {s['tokens']} tokens in "
+        f"{s['wall_s']:.3f} s -> {s['tok_per_s']:.1f} tok/s, latency p50 "
+        f"{s['latency_p50_s']*1e3:.1f} ms p99 "
+        f"{s['latency_p99_s']*1e3:.1f} ms; peak {peak_mib()}")
+    check(all(r.state is RequestState.DONE for r in reqs),
+          f"not all requests DONE: {[r.state.value for r in reqs]}")
+    check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+          "a request stopped short of its budget")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
+          "token outside the vocabulary")
+    check(dict(LAUNCHES) == before,
+          "a hand-written kernel was launched on whisper's path")
+
+    # where a group's time goes: its prefill and its decode steps
+    whisper_step_check(torch, model, params, dev, zeros, prompts)
+    del eng, model, params, zeros
+    _free(torch)
+    train_whisper_phase(torch)
+    log(f"[whisper] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def whisper_consistency_check(torch, model, params, dev) -> None:
+    """f32 on the card: ``prefill`` of 4 tokens and 4 teacher-forced
+    ``decode_step``s against ``forward`` over the 8 tokens (B 2, frames
+    N(0, 1)): every position's logits within PARITY_TOL x max|logit|, and
+    the greedy token equal wherever the forward's top-2 gap exceeds twice
+    the largest error (a closer pair is a tie that rounding may flip)."""
+    from repro_torch.models import layers as L
+    p32 = L.tree_map(lambda t: t.float(), params)
+    cfg = model.cfg
+    rng = np.random.default_rng(7)
+    frames = torch.as_tensor(rng.standard_normal(
+        (2, cfg.enc_len, cfg.d_model)), dtype=torch.float32, device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 8)),
+                           dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        full, _ = model.forward(p32, {"frames": frames, "tokens": toks})
+        lg, cache = model.prefill(p32, {"frames": frames,
+                                        "tokens": toks[:, :4]},
+                                  max_len=WHISPER_SERVE["max_len"])
+        steps = [lg[:, 0]]
+        for i in range(4, 8):
+            lg, cache = model.decode(p32, cache, toks[:, i:i + 1])
+            steps.append(lg[:, 0])
+    got = torch.stack(steps, 1).float()
+    want = full[:, 3:].float()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    top2 = want.topk(2, -1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * err
+    same = (got.argmax(-1) == want.argmax(-1))
+    log(f"[whisper] f32 prefill (4 tokens) + 4 decode steps vs forward, B 2: "
+        f"max_abs_err={err:.3e} (max|logit|={scale:.3f}, tol {PARITY_TOL} x "
+        f"max|logit|); greedy equal at {int(same[clear].sum())}/"
+        f"{int(clear.sum())} positions whose top-2 gap exceeds 2 x err "
+        f"({int(same.sum())}/{same.numel()} in all); pos "
+        f"{cache['pos'].tolist()}")
+    check(bool(torch.isfinite(got).all()), "whisper f32 logits not finite")
+    check(err <= PARITY_TOL * scale, f"prefill/decode vs forward: {err}")
+    check(bool(same[clear].all()), "greedy tokens disagree")
+    check(cache["pos"].tolist() == [8, 8], "decode positions")
+    del p32, cache, full
+
+
+def whisper_step_check(torch, model, params, dev, frames, prompts) -> None:
+    """A group's prefill (B 8: the encoder and the prompt) and its bf16
+    decode steps: the prefill's device ms (CUDA events) against the
+    host's wall ms; 8 decode steps under torch.profiler (the card's busy
+    share, the top kernels), then 5 more by CUDA events (median); one
+    step counted per region on the meta device: the cross-attention's
+    share (it projects K/V from the whole encoder output every step)
+    against the expected 2 x 2 x B x enc_len x d_model^2 flops a layer."""
+    from repro_torch.core import counters
+    cfg = model.cfg
+    B = frames.shape[0]
+    batch = {"frames": frames, "tokens": torch.as_tensor(prompts[:B],
+                                                         device=dev)}
+    with torch.no_grad():
+        (lg, cache), pms, pwall = _event_ms(torch, lambda: model.prefill(
+            params, batch, max_len=WHISPER_SERVE["max_len"]))
+        tok = lg[:, -1].argmax(-1, keepdim=True).int()
+
+        def steps(n):
+            nonlocal cache
+            for _ in range(n):
+                _, cache = model.decode(params, cache, tok)
+        _profile_step(torch, lambda: steps(8), tag="whisper-profile",
+                      what=f"8 eager decode steps at B {B}")
+        dms, wall = [], []
+        for _ in range(5):
+            _, d, w = _event_ms(torch, lambda: steps(1))
+            dms.append(d)
+            wall.append(w)
+    rc = counters.collect(lambda p, c, t: model.decode(p, c, t), params,
+                          cache, tok)
+    cross = sum(c.flops for k, c in rc.regions.items() if "/cross_attn" in k)
+    kv = 2 * 2 * B * cfg.enc_len * cfg.d_model ** 2 * cfg.n_layers
+    log(f"[whisper] prefill B {B} bf16 (encoder over {cfg.enc_len} frames "
+        f"and {prompts.shape[1]} tokens): device {pms:.3f} ms, host wall "
+        f"{pwall:.3f} ms; decode step (eager): device {np.median(dms):.3f} "
+        f"ms (CUDA events, first enqueue to last kernel), host wall "
+        f"{np.median(wall):.3f} ms, median of 5; counted on the meta "
+        f"device: {rc.total.flops / 1e12:.4f} TFLOP, "
+        f"{rc.total.bytes / 1e9:.3f} GB, {rc.total.ops} ops; cross_attn "
+        f"{cross / 1e12:.4f} TFLOP = {cross / rc.total.flops:.1%} (its K/V "
+        f"projection of enc_out: {kv / 1e12:.4f} TFLOP)")
+    check(cross >= kv, f"cross-attention counts {cross} < {kv}")
+    del cache
+
+
+def train_whisper_phase(torch) -> None:
+    """[train-whisper] whisper-large-v3 at full width in bf16 on zero
+    frames (the launcher's stub): B 2 x S 448 under the null plan (3
+    steps) and with every enc/dec layer remat (2 steps, step 0's loss
+    equal), then remat at B 4 (2 steps); the share of the bf16 peak by
+    ``model_flops`` (6·N·B·S over decoder tokens, N with the encoder) and
+    by the meta count of a step (its work)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import counters, roofline
+    from repro_torch.core.policy import default_plan, null_plan
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build, model_flops
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    dev = torch.device("cuda")
+    model = build(get_config(WHISPER_ARCH))
+    cfg = model.cfg
+    tr = WHISPER_TRAIN
+    S, steps = tr["seq"], tr["steps"]
+    peak = roofline.peak_ops(torch.bfloat16, roofline.card_for(
+        torch.cuda.get_device_name(0)))
+    opt_cfg = adamw.AdamWConfig(lr=tr["lr"])
+    runs = {}
+    for name, plan, B, n in (("null", null_plan(), tr["batch"], steps),
+                             ("remat", default_plan(kind="train"),
+                              tr["batch"], 2),
+                             ("remat-b4", default_plan(kind="train"),
+                              tr["remat_batch"], 2)):
+        data = DataConfig(cfg.vocab_size, seq_len=S, global_batch=B, seed=0)
+        frames = {"frames": torch.zeros((B, cfg.enc_len, cfg.d_model),
+                                        dtype=torch.bfloat16, device=dev)}
+        params, opt, run = _train_run(
+            torch, model, plan, opt_cfg, data, range(n),
+            f"{WHISPER_ARCH} {name} B {B}", schedule_total=steps,
+            tag="train-whisper", extra=frames)
+        if name == "null":
+            step_fn = trainer.make_train_step(model, plan, opt_cfg=opt_cfg,
+                                              schedule_total=steps)
+            batch = dict(batch_at(data, n, dev), **frames)
+            _profile_step(torch, lambda: step_fn(params, opt, batch),
+                          tag="train-whisper-profile",
+                          what=f"one null-plan step at B {B}")
+            del step_fn, batch
+        del params, opt
+        _free(torch)
+        flops = model_flops(cfg, ShapeConfig("train", S, B, "train"))
+        if name != "remat":
+            mparams = L.tree_map(lambda sp: torch.empty(
+                sp.shape, dtype=torch.bfloat16, device="meta"), model.spec())
+            mbatch = counters.to_meta(dict(batch_at(data, 0, dev), **frames))
+            rc = counters.collect(trainer.make_train_step(model, plan),
+                                  mparams, adamw.init_state(mparams), mbatch)
+            run["meta_flops"] = rc.total.flops
+            del mparams
+        med = float(np.median(run["ms"][1:]))
+        log(f"[train-whisper] {name} B {B} x S {S}: median step {med:.3f} "
+            f"ms over steps 2-{n} -> {B * S / med * 1e3:.1f} decoder tok/s; "
+            f"model_flops 6·N·B·S {flops / 1e12:.3f} TFLOP = "
+            f"{flops / (med * 1e-3) / peak:.1%} of the bf16 dense peak; "
+            + (f"the meta count of a step {run['meta_flops'] / 1e12:.3f} "
+               f"TFLOP = {run['meta_flops'] / (med * 1e-3) / peak:.1%} of "
+               f"it; " if "meta_flops" in run else "")
+            + f"peak allocated {_gib(run['peak'])}; losses {run['loss']}, "
+            f"grad norms {run['gnorm']}")
+        runs[name] = run
+    check(runs["remat"]["loss"][0] == runs["null"]["loss"][0],
+          f"remat changed step 0's loss: {runs['remat']['loss'][0]!r} vs "
+          f"{runs['null']['loss'][0]!r}")
+    check(runs["remat"]["peak"] < runs["null"]["peak"],
+          "remat did not lower the peak")
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2357,13 +2684,17 @@ def main() -> int:
         log(f"[card] {card_line()}")
         train_phase(torch)
         return 0
-    if sys.argv[1:] == ["--moe"]:
+    if sys.argv[1:] in (["--moe"], ["--vlm"]):
         from repro_torch.kernels import cuda_build
         from repro_torch.kernels import paged_attention as pa
         log(f"[card] {card_line()}")
         cuda_build.build("paged_attention")
         pa.build()
-        moe_phase(torch)
+        (moe_phase if sys.argv[1:] == ["--moe"] else vlm_phase)(torch)
+        return 0
+    if sys.argv[1:] == ["--whisper"]:
+        log(f"[card] {card_line()}")
+        whisper_phase(torch)
         return 0
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -2419,6 +2750,8 @@ def main() -> int:
     serve_shape_phase(torch, shape_counts, scan_records)
     train_phase(torch)
     record["launches_moe"] = moe_phase(torch)
+    record["launches_vlm"] = vlm_phase(torch)
+    whisper_phase(torch)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

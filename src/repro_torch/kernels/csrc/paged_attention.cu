@@ -15,9 +15,10 @@
 // engine masks such inactive slots at sampling).
 //
 // What bounds it.  Decode attention does ~2 operations per K/V byte read
-// for each query row sharing a kv-head (R = S * G <= 12 at the repo's
-// configs), far under the card's ~295 operations per byte, so the bound is
-// the bytes of K/V of the positions each slot's last query sees.  Those
+// for each query row sharing a kv-head (R = S * G <= 18 at the repo's
+// configs: internvl2-26b's G 6 at S 3), far under the card's ~295
+// operations per byte, so the bound is the bytes of K/V of the positions
+// each slot's last query sees.  Those
 // bytes are spread very unevenly (one slot may hold 64 pages, the next
 // none), and a decode call is short, so what holds a kernel back from the
 // bound is latency: the walk of the longest slot, and the chain of

@@ -82,7 +82,10 @@ def build_trace(args, vocab_size: int) -> list[Request]:
 def run_static(engine: Engine, reqs: list[Request], slots: int) -> dict:
     """Lockstep baseline: group FIFO into batches of ``slots``, wait for the
     whole group to arrive, decode everyone for the group's longest
-    budget."""
+    budget.  An encoder-decoder model gets zero frames (the stubbed
+    frontend, as the JAX launcher feeds it) in the params' dtype: bf16, as
+    there, unless the caller asked for another."""
+    cfg = engine.model.cfg
     t0 = time.perf_counter()
     for i in range(0, len(reqs), slots):
         group = reqs[i:i + slots]
@@ -90,9 +93,14 @@ def run_static(engine: Engine, reqs: list[Request], slots: int) -> dict:
         if wait > 0:
             time.sleep(wait)
         prompts = np.stack([r.prompt for r in group])
+        extra = None
+        if cfg.family == "encdec":
+            extra = {"frames": torch.zeros(
+                (len(group), cfg.enc_len, cfg.d_model),
+                dtype=engine._param_dtype(), device=engine.device)}
         n_steps = max(r.max_new_tokens for r in group)
         t_gen0 = time.perf_counter() - t0
-        res = engine.generate(prompts, n_steps)
+        res = engine.generate(prompts, n_steps, extra)
         out = res["tokens"].cpu().numpy()
         t = time.perf_counter() - t0
         # the group's first tokens land right after its prefill — TTFT is

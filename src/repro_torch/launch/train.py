@@ -6,8 +6,10 @@ else does).  Handles checkpoint/restart (``--resume``), straggler
 telemetry and plan files from the autotuner.  The port trains on one
 device, and there — as the JAX launcher does on one device — any plan,
 a ``--plan`` file included, is replaced by ``null_plan()``: the launcher
-never remats.  The dense and MoE families train; rwkv6 and zamba2 raise
-(ROADMAP queue 1 item 13).
+never remats.  The dense, MoE, VLM and encoder-decoder families train
+(the last two on zero vision embeddings and zero frames, the stubbed
+frontends, as the JAX launcher feeds them, in the params' dtype); rwkv6
+and zamba2 raise (ROADMAP queue 1 item 13).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
       --steps 50 --batch 8 --seq 128 --ckpt-dir run1
@@ -99,8 +101,16 @@ def main(argv=None):
 
     t_start = time.time()
     metrics = None
+    dtype = getattr(torch, args.dtype)
     for step in range(start_step, args.steps):
         batch = next(data)
+        if cfg.family == "encdec":
+            batch = dict(batch, frames=torch.zeros(
+                (args.batch, cfg.enc_len, cfg.d_model), dtype=dtype,
+                device=dev))
+        if cfg.frontend == "vision_patches":
+            batch = dict(batch, vision_embeds=torch.zeros(
+                (args.batch, 8, cfg.d_model), dtype=dtype, device=dev))
         watchdog.start()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         straggler = watchdog.stop(step)

@@ -1,6 +1,6 @@
-"""Attention on PyTorch: full-sequence causal (train / forward / prefill),
-the slot pool's KV-cache decode, and the paged KV pool's decode and
-chunked-prefill steps.
+"""Attention on PyTorch: full-sequence attention (train / forward /
+prefill, whisper's encoder and cross-attention), the slot pool's KV-cache
+decode, and the paged KV pool's decode and chunked-prefill steps.
 
 K/V caches and page pools are updated **in place** (``index_put_``): the
 JAX package donates the cache buffers to each step, and mutating the
@@ -54,46 +54,78 @@ def _out_proj(attn: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return attn.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _masked_softmax(s: torch.Tensor, valid: torch.Tensor,
+def _masked_softmax(s: torch.Tensor, valid,
                     dtype: torch.dtype) -> torch.Tensor:
     """Scores in any dtype -> probabilities in ``dtype``: masked in f32
-    with the finite ``-1e30``, softmax in f32."""
-    s = s.float().masked_fill(~valid, NEG_INF)
+    with the finite ``-1e30`` (``valid`` None: nothing masked), softmax in
+    f32."""
+    s = s.float()
+    if valid is not None:
+        s = s.masked_fill(~valid, NEG_INF)
     return torch.softmax(s, dim=-1).to(dtype)
+
+
+def _project_qkv(cfg, p, x, kv_x, positions, kv_positions, rope: bool):
+    """q from ``x``, K/V from ``kv_x`` (the same tensor for
+    self-attention), qk-norm where the params hold it (a cross-attention's
+    do not), rope at the given absolute positions when ``rope``."""
+    q = _proj(x, p["wq"])
+    k = _proj(kv_x, p["wk"])
+    v = _proj(kv_x, p["wv"])
+    if cfg.qk_norm and "q_norm" in p:
+        q = _rms(q, p["q_norm"])
+        k = _rms(k, p["k_norm"])
+    if rope:
+        q = apply_rope(cfg, q, positions)
+        k = apply_rope(cfg, k, kv_positions)
+    return q, k, v
 
 
 def _qkv_rope(cfg, p, x, positions):
     """Shared decode/chunk preamble: project q and the new K/V rows,
     qk-norm, rope at the given absolute positions."""
-    q = _proj(x, p["wq"])
-    k_new = _proj(x, p["wk"])
-    v_new = _proj(x, p["wv"])
-    if cfg.qk_norm and "q_norm" in p:
-        q = _rms(q, p["q_norm"])
-        k_new = _rms(k_new, p["k_norm"])
-    q = apply_rope(cfg, q, positions)
-    k_new = apply_rope(cfg, k_new, positions)
-    return q, k_new, v_new
+    return _project_qkv(cfg, p, x, x, positions, positions, True)
 
 
 def apply_attention(cfg, p, x: torch.Tensor, plan: RegionPlan, *,
+                    positions=None, kv_x=None, kv_positions=None,
+                    causal=None, rope: bool = True,
                     name: str = "attn") -> torch.Tensor:
-    """Full-sequence causal self-attention (the ``forward`` path), GQA
-    grouped so K/V are never repeated to the full head count."""
+    """Full-sequence attention (train / forward / prefill / encoder /
+    cross), GQA grouped so K/V are never repeated to the full head count.
+
+    ``kv_x`` (B, Sk, D): the sequence K/V are projected from (a
+    cross-attention's encoder output; default ``x``).  ``positions`` and
+    ``kv_positions`` default to 0..S-1 and 0..Sk-1; ``causal`` to
+    ``cfg.causal``; ``rope=False`` leaves q and K unrotated.  Query i sees
+    key j where ``positions[i] >= kv_positions[j]`` when causal, and within
+    ``cfg.swa_window`` of it when the config has a window; a call with
+    neither masks nothing."""
     with region(name) as rpath:
         B, S, _ = x.shape
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        q, k, v = _qkv_rope(cfg, p, x, positions)
+        causal = cfg.causal if causal is None else causal
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        if kv_x is None:
+            kv_x, kv_positions = x, positions
+        elif kv_positions is None:
+            kv_positions = torch.arange(kv_x.shape[1], dtype=torch.int32,
+                                        device=x.device)
+        q, k, v = _project_qkv(cfg, p, x, kv_x, positions, kv_positions,
+                               rope)
         hd = q.shape[-1]
         kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
         qg = q.reshape(B, S, kvh, g, hd)
         s = torch.einsum("bqhge,bkhe->bhgqk", qg, k) / math.sqrt(hd)
-        valid = torch.ones((S, S), dtype=torch.bool, device=x.device)
-        if cfg.causal:
-            valid = torch.tril(valid)
-        if cfg.swa_window:
-            idx = torch.arange(S, device=x.device)
-            valid &= (idx[:, None] - idx[None, :]) < cfg.swa_window
+        valid = None
+        if causal or cfg.swa_window:
+            dist = positions[:, None].long() - kv_positions[None, :].long()
+            valid = torch.ones(dist.shape, dtype=torch.bool,
+                               device=x.device)
+            if causal:
+                valid &= dist >= 0
+            if cfg.swa_window:
+                valid &= dist < cfg.swa_window
         probs = _masked_softmax(s, valid, x.dtype)
         attn = torch.einsum("bhgqk,bkhe->bqhge", probs, v)
         out = _out_proj(attn.reshape(B, S, cfg.n_heads, hd), p["wo"])

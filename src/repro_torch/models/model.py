@@ -29,19 +29,21 @@ from repro_torch.core.policy import RegionPlan, null_plan
 from repro_torch.models import layers as L
 
 
+N_VISION_TOKENS = 256
+
+
 def _family_module(cfg: ArchConfig):
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as m
-        return m
-    if cfg.family == "ssm":
+    elif cfg.family == "ssm":
         from repro_torch.models import rwkv6 as m
-        return m
-    if cfg.family == "hybrid":
+    elif cfg.family == "hybrid":
         from repro_torch.models import zamba2 as m
-        return m
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item "
-        f"12: enc-dec and VLM)")
+    elif cfg.family == "encdec":
+        from repro_torch.models import whisper as m
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
+    return m
 
 
 @dataclasses.dataclass
@@ -158,7 +160,10 @@ def params_from_numpy(tree: Any, device: DeviceLike = None,
     holding ``{router,gate,up,down}`` and, with shared experts,
     ``{shared,shared_gate}``; rwkv6's ``{tmix,cmix,ln1,ln2}``, zamba2's
     ``{ssm,norm}``), rwkv6's ``ln_in``, zamba2's unstacked ``shared``
-    block, ``final_norm``) -> the same tree of
+    block, whisper's layer-stacked ``enc_blocks``
+    (``{attn,mlp,norm1,norm2}``) and ``dec_blocks``
+    (``{self_attn,cross_attn,mlp,norm1,norm2,norm3}``) and its
+    ``enc_norm``, ``final_norm``) -> the same tree of
     tensors on ``device`` in ``dtype`` (``None`` keeps each array's own
     dtype; numpy has no bfloat16, so such arrays come over as float32)."""
     dev = resolve_device(device)

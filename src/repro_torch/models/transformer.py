@@ -1,6 +1,6 @@
-"""Generic decoder LM (qwen3-8b/32b, stablelm, h2o-danube; with
-:mod:`repro_torch.models.moe` layers, qwen2-moe and granite-moe), on
-PyTorch.  Parameters are stored layer-stacked (leading ``layers`` axis),
+"""Generic decoder LM (qwen3-8b/32b, stablelm, h2o-danube, the
+internvl2 backbone; with :mod:`repro_torch.models.moe` layers, qwen2-moe
+and granite-moe), on PyTorch.  Parameters are stored layer-stacked (leading ``layers`` axis),
 the JAX package's layout, so its param tree bridges across unchanged
 (:func:`repro_torch.models.model.params_from_numpy`).
 """
@@ -93,12 +93,26 @@ def _block_loop(cfg, params, x, plan: RegionPlan, attn_apply,
     return x, new_layers, aux_total
 
 
+def _vision_stub(cfg, x: torch.Tensor, batch) -> torch.Tensor:
+    """A VLM's stubbed vision frontend: the first
+    ``vision_embeds.shape[1]`` positions of the embedded tokens are
+    replaced by the given (precomputed) patch embeddings, cast to the
+    activations' dtype."""
+    if cfg.frontend == "vision_patches" and "vision_embeds" in batch:
+        with region("vision_stub"):
+            ve = batch["vision_embeds"].to(x.dtype)
+            x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+    return x
+
+
 def forward(cfg, params, batch, plan: RegionPlan,
             final_logits_only: bool = False):
     """Full-sequence forward: returns (logits, the MoE aux loss summed
     over layers; 0 for a dense model).  Layers whose plan entry sets
-    ``remat`` are recomputed in the backward."""
+    ``remat`` are recomputed in the backward.  A VLM's ``vision_embeds``
+    (B, N, D) take the place of its first N token embeddings."""
     x = L.apply_embed(cfg, params["embed"], batch["tokens"], plan)
+    x = _vision_stub(cfg, x, batch)
     x, _, aux = _block_loop(cfg, params, x, plan,
                             lambda li, lp, h: (attn.apply_attention(
                                 cfg, lp["attn"], h, plan), None),
@@ -148,10 +162,11 @@ def decode_step(cfg, params, cache, tokens, plan: RegionPlan,
 
 def prefill(cfg, params, batch, plan: RegionPlan, max_len: int):
     """Forward over the prompt, returning last-token logits (B, 1, V) and
-    a filled cache."""
+    a filled cache (a VLM's ``vision_embeds`` as in :func:`forward`)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.apply_embed(cfg, params["embed"], tokens, plan)
+    x = _vision_stub(cfg, x, batch)
     x, caches, _ = _block_loop(
         cfg, params, x, plan,
         lambda li, lp, h: (attn.apply_attention(cfg, lp["attn"], h, plan),

@@ -565,6 +565,10 @@ class Engine:
     def _ensure_pool(self):
         if self._pool is not None:
             return
+        if self.model.cfg.family == "encdec":
+            raise NotImplementedError(
+                "continuous batching supports decoder-only families; "
+                "use generate() for encdec")
         self._paged = self._use_paged()
         if not self._paged:
             self._pool = SlotKVPool(

@@ -14,8 +14,10 @@
 * AdamW from :mod:`repro_torch.optim.adamw`, in place, under the
   ``optimizer`` region.
 
-The dense and MoE families train (an MoE model's load-balancing aux loss
-joins the loss at ``AUX_WEIGHT``); the recurrent and hybrid models' scans
+The dense, MoE, VLM and encoder-decoder families train (an MoE model's
+load-balancing aux loss joins the loss at ``AUX_WEIGHT``; a VLM scores
+only the tokens after its vision prefix); the recurrent and hybrid
+models' scans
 run on hand-written kernels (and plain versions) that have no backward,
 and their differentiable scans are not ported yet (ROADMAP queue 1 item
 13).
@@ -29,7 +31,7 @@ import torch
 from repro_torch.core.policy import RegionPlan, null_plan
 from repro_torch.core.regions import region
 from repro_torch.models import layers as L
-from repro_torch.models.model import Model
+from repro_torch.models.model import N_VISION_TOKENS, Model
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import warmup_cosine
 
@@ -67,7 +69,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def _require_trainable(model: Model) -> None:
-    if model.cfg.family not in ("dense", "moe"):
+    if model.cfg.family not in ("dense", "moe", "vlm", "encdec"):
         raise NotImplementedError(
             f"{model.cfg.name}: training the {model.cfg.family!r} family is "
             f"not ported yet (ROADMAP queue 1 item 13)")
@@ -82,7 +84,14 @@ def make_loss_fn(model: Model, plan: Optional[RegionPlan], unroll: bool):
 
     def loss_fn(params, batch):
         logits, aux = model.forward(params, batch, plan, unroll=unroll)
-        ce = cross_entropy(logits, batch["labels"])
+        labels = batch["labels"]
+        if model.cfg.frontend == "vision_patches":
+            # the stubbed vision prefix replaces the first tokens; score the
+            # rest (N_VISION_TOKENS whatever the prefix's length, as the
+            # JAX package does)
+            logits = logits[:, N_VISION_TOKENS:]
+            labels = labels[:, N_VISION_TOKENS:]
+        ce = cross_entropy(logits, labels)
         return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
     return loss_fn

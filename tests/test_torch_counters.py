@@ -364,3 +364,91 @@ def test_moe_decode_step_counts_match_jax(arch):
     for r in moe_regions:
         f, jf = rc.regions[r].flops, jrc.regions[r].flops
         assert abs(f - jf) <= 0.25 * jf, (r, f, jf)
+
+
+def _inclusive_flops(rc, r):
+    """Flops of region ``r`` with the regions nested in it."""
+    return sum(c.flops for k, c in rc.regions.items()
+               if k == r or k.startswith(r + "/"))
+
+
+def _bridged(arch):
+    jmodel = jbuild(jget_config(arch).reduced())
+    jparams = jax.jit(lambda k: jmodel.init(k, dtype=jnp.float32))(
+        jax.random.PRNGKey(0))
+    return jmodel, jparams, build(get_config(arch).reduced()), \
+        params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+@pytest.mark.parametrize("step", ["decode_step", "encode"])
+def test_whisper_step_counts_match_jax(step):
+    """Reduced whisper-large-v3's ``decode_step`` (B 2 on a 16-row cache)
+    and ``encode`` (B 2 x 32 frames), counted by both packages: every
+    region of the port's count is one of JAX's (JAX's HLO also carries
+    nested copies of a scope's name, ``dec0/self_attn/dec0/self_attn``,
+    which the port has no counterpart of), and ``encoder``, each
+    ``encoder/enc{li}``, ``dec{li}``, ``dec{li}/self_attn`` and
+    ``dec{li}/cross_attn``, with the regions nested in them, within 25% of
+    JAX's flops.  The cross-attention, which projects K/V from the whole
+    encoder output on every step, takes most of a decode step's."""
+    from repro.core.policy import null_plan as jplan
+    from repro.models import whisper as jwhisper
+    from repro_torch.models import whisper
+    jmodel, jparams, model, params = _bridged("whisper-large-v3")
+    cfg, B = model.cfg, 2
+    if step == "decode_step":
+        jcache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
+                              jmodel.cache_spec(B, 16, dtype=jnp.float32))
+        jrc = jcounters.collect(jax.jit(jmodel.decode).lower(
+            jparams, jcache, jnp.zeros((B, 1), jnp.int32)).compile())
+        rc = counters.collect(
+            lambda p, c, t: model.decode(p, c, t), params,
+            model.init_cache(B, 16, dtype=torch.float32, device="cpu"),
+            torch.zeros((B, 1), dtype=torch.int32))
+        named = [f"dec{i}{r}" for i in range(cfg.n_layers)
+                 for r in ("", "/self_attn", "/cross_attn")]
+    else:
+        frames = (B, cfg.enc_len, cfg.d_model)
+        jrc = jcounters.collect(jax.jit(
+            lambda p, f: jwhisper.encode(jmodel.cfg, p, f, jplan())).lower(
+                jparams, jnp.zeros(frames, jnp.float32)).compile())
+        rc = counters.collect(
+            lambda p, f: whisper.encode(cfg, p, f, null_plan()), params,
+            torch.zeros(frames))
+        named = ["encoder"] + [f"encoder/enc{i}"
+                               for i in range(cfg.n_enc_layers)]
+    assert set(rc.regions) - {""} <= set(jrc.regions)
+    for r in named:
+        f, jf = _inclusive_flops(rc, r), _inclusive_flops(jrc, r)
+        assert jf > 0 and abs(f - jf) <= 0.25 * jf, (r, f, jf)
+    if step == "decode_step":
+        assert _inclusive_flops(rc, "dec0/cross_attn") > 0.8 * \
+            _inclusive_flops(rc, "dec0")
+
+
+def test_internvl2_counts_match_jax():
+    """Reduced internvl2-26b: its paged decode step counted by both
+    engines (the same region set, each layer's flops within 25% of
+    JAX's), and a forward with vision embeddings, whose ``vision_stub``
+    region both packages count (at least the embeddings' bytes)."""
+    jmodel, jparams, model, params = _bridged("internvl2-26b")
+    kw = dict(max_len=32, max_slots=4, page_size=8, online_retrain=True)
+    jeng = JEngine(jmodel, jparams, serve_cfg=JServeConfig(**kw))
+    jeng._ensure_pool()
+    eng = Engine(model, params, serve_cfg=ServeConfig(**kw), device="cpu")
+    eng._ensure_pool()
+    jrc, rc = jeng._pool_rc, eng._pool_rc
+    assert set(rc.regions) == set(jrc.regions)
+    for li in range(model.cfg.n_layers):
+        f, jf = _layer_flops(rc, li), _layer_flops(jrc, li)
+        assert abs(f - jf) <= 0.25 * jf, (li, f, jf)
+    ve = (2, 8, model.cfg.d_model)
+    jrc = jcounters.collect(jax.jit(jmodel.forward).lower(jparams, {
+        "tokens": jnp.zeros((2, 12), jnp.int32),
+        "vision_embeds": jnp.zeros(ve, jnp.float32)}).compile())
+    rc = counters.collect(lambda p, b: model.forward(p, b), params, {
+        "tokens": torch.zeros((2, 12), dtype=torch.int32),
+        "vision_embeds": torch.zeros(ve)})
+    assert set(rc.regions) == set(jrc.regions)
+    for r in (rc, jrc):
+        assert r.regions["vision_stub"].bytes >= 4 * np.prod(ve)

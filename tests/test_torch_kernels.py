@@ -254,7 +254,12 @@ PLAN_SHAPES = [(8, 1, 32, 1, 64, 2, 16, 64, 132),    # the smoke's timed call
                (1, 1, 8, 4, 128, 2, 16, 64, 132),
                (3, 2, 2, 3, 16, 4, 8, 5, 7),
                (2, 1, 1, 1, 256, 4, 4, 9, 132),
-               (5, 4, 2, 2, 32, 2, 128, 3, 16)]
+               (5, 4, 2, 2, 32, 2, 128, 3, 16),
+               # internvl2-26b (G 6): ragged last row chunks, bf16 S 1 and
+               # 3 (2 of 4 rows), f32 S 3 (2 of 8)
+               (8, 1, 8, 6, 128, 2, 16, 64, 132),
+               (8, 3, 8, 6, 128, 2, 16, 64, 132),
+               (8, 3, 8, 6, 128, 4, 16, 64, 132)]
 
 
 def _splits(p, max_pages):
@@ -390,13 +395,16 @@ def test_head_width_rule(hd, ok):
 
 
 def _gpu_case_args(case, S):
-    """The gpu test's inputs: the peaked-softmax check, then qwen3-8b's and
-    h2o-danube-1.8b's GQA widths on ragged lengths, and one slot of full
-    length at max_pages 64 (every split of the table live)."""
+    """The gpu test's inputs: the peaked-softmax check, then qwen3-8b's,
+    h2o-danube-1.8b's and internvl2-26b's GQA widths on ragged lengths
+    (internvl2's G 6 leaves the last row chunk of a block part-filled), and
+    one slot of full length at max_pages 64 (every split of the table
+    live)."""
     if case == "peaked":
         return _peaked_bf16_args(6, S)
     B, KVH, G, D, ps, MP, lengths = {
         "qwen3-8b": (4, 8, 4, 128, 16, 8, [100, 77, 40, 0]),
+        "internvl2-26b": (4, 8, 6, 128, 16, 8, [100, 77, 40, 0]),
         "h2o-danube-1.8b": (4, 8, 4, 80, 16, 8, [100, 77, 40, 0]),
         "long-slot": (1, 8, 4, 128, 16, 64, [16 * 64 - (S - 1)])}[case]
     return _t(*_inputs(9, B, S, KVH, G, D, ps, MP, lengths, S - 1,
@@ -405,13 +413,14 @@ def _gpu_case_args(case, S):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["peaked", "qwen3-8b", "h2o-danube-1.8b",
-                                  "long-slot"])
+                                  "internvl2-26b", "long-slot"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,bk", [(1, 0), (3, 8)])
 def test_cuda_kernel_matches_plain_version(dtype, S, bk, case):
     """The CUDA kernel against the plain version on the card (skips here),
-    on peaked-softmax inputs at the GQA widths of qwen3-8b and
-    h2o-danube-1.8b and a long slot, under ``ref.KERNEL_TOL``."""
+    on peaked-softmax inputs at the GQA widths of qwen3-8b,
+    h2o-danube-1.8b and internvl2-26b and a long slot, under
+    ``ref.KERNEL_TOL``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False

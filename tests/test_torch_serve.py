@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.registry import get_config as jget_config
 from repro.core.policy import RegionConfig as JRegionConfig
@@ -215,14 +216,19 @@ def test_features_outside_the_slice_raise(models, monkeypatch):
     the decision tree and the online loop: tests/test_torch_autotune_serve
     .py; MoE: tests/test_torch_moe.py.)  A tensor-parallel degree clamps
     down to the devices, as in the JAX package, so it raises only where
-    more than one device remains."""
+    more than one device remains.  An encoder-decoder model builds, and
+    the engine refuses to serve it with continuous batching, as the JAX
+    engine does (tests/test_torch_whisper.py)."""
     _, _, model, tparams = models
     bad = [dict(telemetry=True), dict(trace_out="t.json")]
     for kw in bad:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(model, tparams, serve_cfg=ServeConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("whisper-large-v3").reduced())
+    whisper = build(get_config("whisper-large-v3").reduced())
+    with pytest.raises(NotImplementedError,
+                       match=r"use generate\(\) for encdec"):
+        Engine(whisper, whisper.init(0, dtype=torch.float32, device="cpu"),
+               device="cpu").serve(_traces([np.arange(4)], [2])[1])
     with pytest.raises(ValueError, match="paged KV unsupported"):
         Engine(build(get_config("rwkv6-3b").reduced()), {},
                serve_cfg=ServeConfig(paged="on"), device="cpu").serve([])
