@@ -295,7 +295,26 @@ def main(argv=None):
                     help="write the final (possibly online-retrained) "
                          "decision tree JSON after serving")
     ap.add_argument("--telemetry", action="store_true",
-                    help="serve telemetry: not ported yet")
+                    help="enable the serve telemetry subsystem (span "
+                         "tracer, step metrics ring, latency sketches) "
+                         "without any file exports; implied by "
+                         "--trace-out/--metrics-out/--log-out.  Greedy "
+                         "output stays bit-identical with telemetry on")
+    ap.add_argument("--trace-out", default="",
+                    help="write the request span trace as Chrome "
+                         "trace-event JSON after serving (load in "
+                         "Perfetto / chrome://tracing; enables telemetry)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write a Prometheus text-exposition metrics "
+                         "snapshot after serving (enables telemetry)")
+    ap.add_argument("--log-out", default="",
+                    help="stream structured telemetry events as JSONL to "
+                         "this file while serving (enables telemetry)")
+    ap.add_argument("--log-level", choices=("debug", "info", "warning"),
+                    default="info",
+                    help="telemetry event threshold: debug adds per-step "
+                         "and per-injection events, warning keeps only "
+                         "health transitions")
     ap.add_argument("--deadline-s", type=float, default=0.0)
     ap.add_argument("--max-queue", type=int, default=0)
     ap.add_argument("--chaos-rate", type=float, default=0.0)
@@ -339,9 +358,12 @@ def main(argv=None):
         online_retrain=args.online_retrain,
         retrain_interval=args.retrain_interval,
         explore_eps=0.0 if args.no_explore else args.explore_eps,
-        explore_budget=args.explore_budget, telemetry=args.telemetry,
+        explore_budget=args.explore_budget,
         deadline_s=args.deadline_s, max_queue=args.max_queue,
-        chaos_rate=args.chaos_rate, chaos_seed=args.chaos_seed))
+        chaos_rate=args.chaos_rate, chaos_seed=args.chaos_seed,
+        telemetry=args.telemetry, trace_out=args.trace_out,
+        metrics_out=args.metrics_out, log_out=args.log_out,
+        log_level=args.log_level))
 
     # explicit serve knobs must route or reject, never silently drop: on
     # the slot pool chunked prefill and speculation need recurrent state
@@ -395,6 +417,8 @@ def main(argv=None):
           f"p50 {s['latency_p50_s']*1e3:.0f} ms  "
           f"p99 {s['latency_p99_s']*1e3:.0f} ms")
     if args.mode == "static":
+        if engine.telemetry is not None:
+            engine.telemetry.close()
         return res
     fl = res["failures"]
     hs = res["health"]
@@ -444,6 +468,28 @@ def main(argv=None):
               f"corpus_entries={at['corpus_entries']} "
               f"pre_swap_tok_s={at['pre_swap_tok_s']:.1f} "
               f"post_swap_tok_s={at['post_swap_tok_s']:.1f}")
+    if engine.telemetry is not None:
+        tm = res.get("telemetry", {})
+        lat = tm.get("step_latency_s", {})
+        qd = tm.get("queue_delay_s", {})
+        print(f"[telemetry] level={tm.get('level', args.log_level)} "
+              f"spans={tm.get('spans', 0)} "
+              f"(dropped={tm.get('spans_dropped', 0)}) "
+              f"events={tm.get('events', 0)} "
+              f"ring={tm.get('ring', {}).get('kept', 0)}/"
+              f"{tm.get('ring', {}).get('steps', 0)} steps  "
+              f"step p50 {lat.get('p50', 0.0)*1e3:.1f} ms "
+              f"p99 {lat.get('p99', 0.0)*1e3:.1f} ms  "
+              f"queue p99 {qd.get('p99', 0.0)*1e3:.1f} ms")
+        if args.trace_out:
+            print(f"[telemetry] trace -> {args.trace_out} (Perfetto / "
+                  f"chrome://tracing)")
+        if args.metrics_out:
+            print(f"[telemetry] metrics -> {args.metrics_out} "
+                  f"(Prometheus text)")
+        if args.log_out:
+            print(f"[telemetry] events -> {args.log_out} (JSONL)")
+        engine.telemetry.close()
     if args.corpus_out and engine.corpus is not None:
         n = engine.corpus.save_jsonl(args.corpus_out)
         print(f"[autotune] corpus -> {args.corpus_out} ({n} entries)")

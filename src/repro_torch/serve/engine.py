@@ -64,10 +64,19 @@ fallback, without touching live state; a failed capture raises.  At
 ``temperature`` > 0 the graph ends at the guarded logits and the draw runs
 after it, from the engine's generator.  Whole-prompt prefill, slot
 prefills and re-advances, and everything on the CPU run eagerly; the
-counters (meta device) call the step functions directly.  Not ported yet,
-and raising ``NotImplementedError`` when asked for: telemetry (ROADMAP
-queue 1 item 9) and a tensor-parallel degree above 1 after clamping to the
-devices (item 14).
+counters (meta device) call the step functions directly.
+
+**Telemetry** (``telemetry=True``, or any of ``trace_out`` /
+``metrics_out`` / ``log_out``): :mod:`repro_torch.serve.telemetry`'s
+request-lifecycle spans, bounded step-metrics ring, latency sketches and
+JSONL event log, exported as a Perfetto trace and Prometheus text
+(:meth:`Engine.metrics_text`).  Every hook sits in the host serve loop,
+never inside a captured graph, and adds no device synchronisation: the
+spans time what the loop dispatches, and a decode step's ``dt_s`` ends
+after its token readback.  Off, ``Engine.telemetry`` is None and each hot
+path pays one ``is not None`` check.  Not ported yet, and raising
+``NotImplementedError`` when asked for: a tensor-parallel degree above 1
+after clamping to the devices (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -161,12 +170,22 @@ class ServeConfig:
     chaos_rate: float = 0.0     # fault-injection probability per site draw
     chaos_seed: int = 0         # FaultInjector stream seed
     chaos_sites: tuple = ()     # subset of faults.FAULT_SITES (empty = all)
-    # -- telemetry (not ported: ROADMAP queue 1 item 9) ----------------------
-    telemetry: bool = False
-    trace_out: str = ""
-    metrics_out: str = ""
-    log_out: str = ""
-    log_level: str = "info"
+    # -- telemetry (serve/telemetry.py: spans + metrics ring + exporters) ----
+    telemetry: bool = False     # build the Telemetry subsystem (request
+                                # span tracing, bounded step-metrics ring,
+                                # latency sketches).  Off = the attribute
+                                # stays None and every hot path pays one
+                                # `is not None` check.  Any of the three
+                                # output paths below implies it on
+    trace_out: str = ""         # write the last serve()'s Chrome
+                                # trace-event JSON (Perfetto-loadable) here
+                                # at serve() exit
+    metrics_out: str = ""       # write a Prometheus text snapshot
+                                # (Engine.metrics_text()) here at serve()
+                                # exit
+    log_out: str = ""           # stream the structured JSONL event log
+                                # here ("" = bounded in-memory buffer only)
+    log_level: str = "info"     # event-log threshold: debug/info/warning
 
 
 def sample_rows(logits: torch.Tensor, gen: torch.Generator,
@@ -243,8 +262,6 @@ class Engine:
         # be shared by every Engine and mutate across instances)
         self.cfg = serve_cfg if serve_cfg is not None else ServeConfig()
         cfg = self.cfg
-        if cfg.telemetry or cfg.trace_out or cfg.metrics_out or cfg.log_out:
-            raise _not_ported("serve telemetry", 9)
         self.params = L.tree_map(lambda t: t.to(self.device), params)
         # the decider is the swappable tree handle (repro_torch.autotune
         # .decider); with online_retrain it exists even before any tree
@@ -284,6 +301,18 @@ class Engine:
         self._force_safe = False                    # pin spec0/gather
         self._fallback = None                       # (step, depth, tp) to
                                                     # restore on recovery
+
+        # -- telemetry (spans + metrics ring + exporters) --------------------
+        # same zero-overhead contract as the injector: None unless asked
+        # for, and every hot-path touch is one `is not None` check
+        self.telemetry = None
+        if cfg.telemetry or cfg.trace_out or cfg.metrics_out or cfg.log_out:
+            from repro_torch.serve.telemetry import Telemetry
+            self.telemetry = Telemetry(level=cfg.log_level,
+                                       log_out=cfg.log_out)
+        self.health.telemetry = self.telemetry
+        if self.faults is not None:
+            self.faults.telemetry = self.telemetry
 
         # -- online autotuning state (measure->corpus->train->decide) --------
         self.corpus = None
@@ -593,6 +622,7 @@ class Engine:
         # paths; None keeps them zero-overhead
         self._pool.faults = self.faults
         self.governor.faults = self.faults
+        self.governor.telemetry = self.telemetry
         self._build_step = self._build_paged_step
         self._install_base_step()
 
@@ -1055,6 +1085,11 @@ class Engine:
         if new_tree is not None:
             self.decider.swap(new_tree)     # version bump busts the latch
             self.autotune_stats["swaps"] += 1
+            if self.telemetry is not None:
+                self.telemetry.event(
+                    "tree_swap", level="info",
+                    retrains=self.trainer.retrain_count,
+                    corpus_entries=len(self.corpus))
         elif self.explorer is not None and self.explorer.active:
             # no swap this round: give the explorer a mid-bucket chance at
             # the retrain cadence (bounded by its eps and budget)
@@ -1129,6 +1164,10 @@ class Engine:
         self.health.reset()
         self._exit_fallback()
         sched = Scheduler()
+        tel = self.telemetry
+        if tel is not None:
+            tel.start_trace()           # fresh spans/ring/sketches per trace
+            sched.tracer = tel.tracer
         for r in requests:
             sched.submit(r)
         sched.sort_queue()
@@ -1142,6 +1181,16 @@ class Engine:
                "decisions": list(self.decisions_log[log_start:]),
                **self.observability(requests)}
         out.update(res)
+        if tel is not None:
+            tel.event("serve_done", level="info",
+                      steps=res.get("steps", 0),
+                      n_done=out["stats"].get("n_done", 0),
+                      tok_per_s=round(out["stats"].get("tok_per_s", 0.0), 3))
+            if self.cfg.trace_out:
+                tel.write_trace(self.cfg.trace_out)
+            if self.cfg.metrics_out:
+                with open(self.cfg.metrics_out, "w") as f:
+                    f.write(self.metrics_text())
         return out
 
     def observability(self, requests: Optional[Sequence[Request]] = None
@@ -1149,9 +1198,10 @@ class Engine:
         """The per-subsystem ``summary()`` dicts behind one aggregate:
         autotune, health, faults, memory (the governor's on the paged pool, slot
         bytes and occupancy high-water on the slot pool), the paged pool's
-        mesh placement (``mesh``) and — when
+        mesh placement (``mesh``), telemetry, and — when
         ``requests`` is passed — the scheduler's trace stats and failure
-        rollup."""
+        rollup.  ``serve()``'s return, the launcher report and
+        :meth:`metrics_text` all read from here."""
         obs: dict = {
             "autotune": self.autotune_summary(),
             "health": self.health.summary(),
@@ -1180,6 +1230,8 @@ class Engine:
                              "hbm_bytes": pool.hbm_bytes(),
                              "high_water_slots": pool.high_water,
                              "high_water_bytes": pool.high_water_bytes()}
+        if self.telemetry is not None:
+            obs["telemetry"] = self.telemetry.summary()
         if requests is not None:
             stats = summarize(requests)
             obs["stats"] = stats
@@ -1191,6 +1243,13 @@ class Engine:
                 "errors": {r.rid: r.error for r in requests if r.error},
             }
         return obs
+
+    def metrics_text(self) -> str:
+        """Prometheus text-exposition snapshot of :meth:`observability`
+        (plus the telemetry latency quantiles when telemetry is on)."""
+        from repro_torch.serve.telemetry import prometheus_text
+        return prometheus_text(self.observability(),
+                               telemetry=self.telemetry)
 
     # ------------------------------------------------------------------
     # Graceful degradation: the safe-plan fallback
@@ -1250,6 +1309,8 @@ class Engine:
                 tok = int(out_np[slot, i])
                 if not req.out_tokens:
                     req.t_first = t
+                    if self.telemetry is not None:
+                        self.telemetry.ttft.add(max(t - req.arrival_s, 0.0))
                 req.out_tokens.append(tok)
                 c += 1
                 if len(req.out_tokens) >= req.max_new_tokens or tok == eos:
@@ -1302,16 +1363,21 @@ class Engine:
         max_depth = 0                       # deepest speculation actually run
         calls = {"prefill": 0, "readvance": 0}
 
+        tel = self.telemetry
         while not sched.done():
             t = now()
             # admit: every free slot takes the next arrived request (FIFO)
             while pool.n_free and sched.has_ready(t):
                 req = sched.pop_ready(t)
                 # queue-delay tap (slot admissions are always fresh: the
-                # slot pool never preempts)
+                # slot pool never preempts): feeds the Counters channel
+                # and, when on, the telemetry sketch
+                qd = max(t - req.arrival_s, 0.0)
                 if self.corpus is not None:
-                    self._tap_qd[0] += max(t - req.arrival_s, 0.0)
+                    self._tap_qd[0] += qd
                     self._tap_qd[1] += 1
+                if tel is not None:
+                    tel.on_admit(req.rid, qd, preempted=False)
                 hist = req.token_history()
                 slot = pool.alloc()
                 if self.cfg.prefill_chunk > 0 and hist.size >= 2:
@@ -1339,9 +1405,13 @@ class Engine:
                 feed = req.token_history()[:-1]
                 chunk = feed[req.prefill_pos:
                              req.prefill_pos + self.cfg.prefill_chunk]
+                tc0 = now() if tel is not None else 0.0
                 with _span("serve.prefill"):
                     pcaches[slot] = self._slot_advance(pcaches[slot], chunk,
                                                        pmode)
+                if tel is not None:
+                    tel.tracer.add(req.rid, "PREFILL_CHUNK", tc0, now(),
+                                   tokens=int(chunk.size))
                 calls["prefill"] += 1
                 budget -= 1
                 req.prefill_pos += chunk.size
@@ -1447,6 +1517,11 @@ class Engine:
             dt_step = time.perf_counter() - t_step0
             self.health.note_step(dt_step, n_slot_faults=len(faulted))
             self._tap_step(n_act, sum(consumed.values()), dt_step)
+            if tel is not None:
+                tel.on_step(steps, t_step0 - t0, dt_step,
+                            sum(consumed.values()), n_act, pool.n_free,
+                            len(faulted),
+                            self._bucket_class.get(load_bucket(n_act), ""))
         return {"steps": steps,
                 "slot_calls": calls,
                 "spec": {"committed_tokens": committed_total,
@@ -1466,6 +1541,7 @@ class Engine:
         DECODE slots expose their block table and length."""
         pool = self._pool
         gov = self.governor
+        tel = self.telemetry
         dev = self.device
         B = pool.n_slots
         pending = np.zeros((B,), np.int32)
@@ -1549,10 +1625,14 @@ class Engine:
                 sched.pop_ready(t)
                 sched.bind_prefill(req, slot, now())
                 # queue-delay tap: admission wait of fresh arrivals (a
-                # PREEMPTED re-entry's wait is tracked separately)
+                # PREEMPTED re-entry's wait is tracked separately) feeds
+                # the Counters channel and, when on, the telemetry sketch
                 if fresh and self.corpus is not None:
                     self._tap_qd[0] += max(t - req.arrival_s, 0.0)
                     self._tap_qd[1] += 1
+                if tel is not None:
+                    tel.on_admit(req.rid, max(t - req.arrival_s, 0.0),
+                                 preempted=not fresh)
                 if matched:
                     pool.advance(slot, matched)  # rows adopted, not written
                     pool.prefix_hit_requests += 1
@@ -1586,8 +1666,12 @@ class Engine:
                     true_c = chunk.size
                     if true_c < C:
                         chunk = np.pad(chunk, (0, C - true_c))
+                    tc0 = now() if tel is not None else 0.0
                     with _span("serve.prefill"):
                         self._paged_prefill(chunk, slot, req.prefill_pos)
+                    if tel is not None:
+                        tel.tracer.add(req.rid, "PREFILL_CHUNK", tc0, now(),
+                                       tokens=int(true_c))
                     budget -= 1
                     if (self.faults is not None
                             and self.faults.fire("prefill.nan")):
@@ -1647,9 +1731,12 @@ class Engine:
                     if req.backoff > 0:
                         # capped-backoff retry: sits out like a stall
                         req.backoff -= 1
+                        if req.backoff == 0 and tel is not None:
+                            tel.tracer.end(req.rid, "RETRY_BACKOFF", now())
                         stalled.append(slot)
                         continue
                     cap = req.prompt.size - 1 + req.max_new_tokens
+                    cow0_slot = pool.cow_copies
                     while (slot in sched.active
                            and (gov.ensure_headroom(slot, S, cap) < 1
                                 or not pool.cow_for_write(slot, S))):
@@ -1660,6 +1747,10 @@ class Engine:
                             stalled.append(slot)
                             break
                         preempt_victim(victim)
+                    if tel is not None and pool.cow_copies > cow0_slot:
+                        # shared pages privatised for this slot's writes
+                        tel.tracer.instant(req.rid, "COW", now(),
+                                           copies=pool.cow_copies - cow0_slot)
                 stalled = [s for s in stalled if s in sched.active]
                 if gov.grown_pages != grown0 or pool.cow_copies != cow0:
                     bt_host["dirty"] = True      # block-table rows edited
@@ -1735,6 +1826,9 @@ class Engine:
                         else:
                             req.backoff = self.health.policy.backoff(
                                 req.fail_streak)
+                            if tel is not None:
+                                tel.tracer.begin(req.rid, "RETRY_BACKOFF",
+                                                 now(), steps=req.backoff)
                         continue
                     req.fail_streak = 0
                     len0 = int(pool.lengths[slot])
@@ -1762,6 +1856,12 @@ class Engine:
                 else:
                     self._exit_fallback()
                 self._tap_step(n_act, sum(consumed.values()), dt_step)
+                if tel is not None:
+                    tel.on_step(steps, t_step0 - t0, dt_step,
+                                sum(consumed.values()), n_act,
+                                pool.allocator.n_free, len(faulted),
+                                self._bucket_class.get(load_bucket(n_act),
+                                                       ""))
         except BaseException as e:
             # engine-internal error mid-serve: release every resident's
             # pages (best-effort per slot) and re-raise only after the

@@ -130,7 +130,8 @@ class StepGraph:
     Attributes: :attr:`launches` and :attr:`launch_shapes`, the kernel
     launches of one replay; :attr:`warmup_launches`, those of the warm-up
     (taken back out of the tallies too); :attr:`pool_bytes`, the device
-    memory the capture reserved in the pool."""
+    memory the capture reserved in the pool; :attr:`replays`, the calls
+    so far."""
 
     def __init__(self, fn: Callable, inputs: StaticInputs, *,
                  warmup: Optional[Callable] = None, pool: Any = None):
@@ -139,6 +140,7 @@ class StepGraph:
         self.device = inputs.buffer.device
         self.pool = pool
         self.pool_bytes = 0
+        self.replays = 0
         self._graph = None
         self._keep: list = []
         before = _tallies()
@@ -158,6 +160,7 @@ class StepGraph:
         replay's launches, and return the output tensors."""
         self.inputs.load(*arrays)
         self._replay()
+        self.replays += 1
         for name, n in self.launches.items():
             LAUNCHES[name] += n
         for key, n in self.launch_shapes.items():

@@ -98,6 +98,10 @@ class MemoryGovernor:
         # optional FaultInjector (serve/faults.py), threaded in by the
         # engine; None = zero-overhead production path
         self.faults = None
+        # optional Telemetry (serve/telemetry.py), same contract:
+        # allocator-pressure decisions (watermark blocks, victim picks)
+        # emit debug-level events through it
+        self.telemetry = None
 
     _TRACE_CAP = 128                # decimate when the trace hits this
 
@@ -153,6 +157,9 @@ class MemoryGovernor:
             if (pool.n_active > 0 and free_eq - need
                     < self.policy.watermark * allocatable):
                 self.admit_blocked += 1
+                if self.telemetry is not None:
+                    self.telemetry.event("admit_blocked", level="debug",
+                                         need_pages=need, free_eq=free_eq)
                 return None
             slot = pool.admit_shared(need, shared_pages)
         if slot is not None and pool.n_active > self.peak_resident:
@@ -239,6 +246,10 @@ class MemoryGovernor:
                 lifo_key, lifo_slot = key, slot
         if best_slot is not None and best_slot != lifo_slot:
             self.shared_spared += 1
+        if best_slot is not None and self.telemetry is not None:
+            self.telemetry.event("victim_picked", level="debug",
+                                 slot=best_slot,
+                                 shared_spared=best_slot != lifo_slot)
         return best_slot
 
     # -- taps -----------------------------------------------------------------

@@ -20,7 +20,8 @@ for m in ("repro_torch.serve.graphs", "repro_torch.optim.adamw",
           "repro_torch.optim.schedule", "repro_torch.data.pipeline",
           "repro_torch.train.checkpoint", "repro_torch.train.elastic",
           "repro_torch.train.trainer", "repro_torch.launch.train",
-          "repro_torch.models.moe", "repro_torch.models.whisper"):
+          "repro_torch.models.moe", "repro_torch.models.whisper",
+          "repro_torch.serve.telemetry"):
     assert m in mods, (m, mods)
 for m in mods:
     importlib.import_module(m)

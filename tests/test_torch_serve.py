@@ -214,16 +214,13 @@ def test_features_outside_the_slice_raise(models, monkeypatch):
     ROADMAP item — never silently dropped.  (The slot pool, paged='off',
     and the static generate() are ported: tests/test_torch_slot_serve.py;
     the decision tree and the online loop: tests/test_torch_autotune_serve
-    .py; MoE: tests/test_torch_moe.py.)  A tensor-parallel degree clamps
+    .py; MoE: tests/test_torch_moe.py; telemetry:
+    tests/test_torch_telemetry.py.)  A tensor-parallel degree clamps
     down to the devices, as in the JAX package, so it raises only where
     more than one device remains.  An encoder-decoder model builds, and
     the engine refuses to serve it with continuous batching, as the JAX
     engine does (tests/test_torch_whisper.py)."""
     _, _, model, tparams = models
-    bad = [dict(telemetry=True), dict(trace_out="t.json")]
-    for kw in bad:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(model, tparams, serve_cfg=ServeConfig(**kw), device="cpu")
     whisper = build(get_config("whisper-large-v3").reduced())
     with pytest.raises(NotImplementedError,
                        match=r"use generate\(\) for encdec"):
