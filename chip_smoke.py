@@ -183,13 +183,34 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    spec 0 round differently from the kernel path at spec 2, so tokens
    equal bit for bit are not expected there.
 
+10. [bots]: the BOTS-analog suite (``repro_torch.bots``) swept over
+   ``suite.DEGREES`` with ``suite.time_workload(name, degree, 3,
+   **size)`` at BOTS_SIZES: strassen n 8192 depth 2 (f32, TF32 off),
+   nqueens n 13 prefix 4 (the lock-step DFS, its blocks replayed as CUDA
+   graphs), sparselu nb 50 bs 100 band 3 (the host-driven LU), health
+   1,048,576 villages x 64 steps, floorplan at the JAX package's size.
+   Every row is counted on the meta device; the degree-1 counters and the
+   best degree make the decision tree's corpus (``train_tree``).  No
+   hand-written kernel lies on this path.  Gates: no row has ``error``;
+   nqueens counts 73712 at every degree; strassen's max error against the
+   f64 product of the same inputs within 10x of f32 ``torch.matmul``'s, at
+   every degree; sparselu's residual < 0.05 and every degree's LU equal to
+   degree 1's within 1e-5 x max|LU|; health treated > 0, peak >= 0,
+   treated <= villages x steps x 10; floorplan 12 <= best < 10000; every
+   degree-1 row's counters with flops > 0 and bytes > 0; ``train_tree``
+   returns a tree.  Logged: per (workload, degree) wall ms, device ms by
+   CUDA events around the same call and the counted arithmetic intensity
+   (``[bots]``), the card's Table 1 with each best degree beside the
+   paper's and the tree's training accuracy (``[bots-table]``), peak
+   allocated and the phase's wall.
+
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits;
 ``python3 chip_smoke.py --train`` runs only the [train] phase,
 ``python3 chip_smoke.py --moe`` only the [moe] phase, ``--vlm`` only
 the [vlm] phase and ``--serve-subsystems`` only phase 9 (each after
-building the paged kernel), and ``--whisper`` only the [whisper] phase
-(no kernel build).
+building the paged kernel), ``--whisper`` only the [whisper] phase and
+``--bots`` only phase 10 (no kernel build).
 
 Random weights come from a seeded torch.Generator.  The launch counts of
 each serve phase are set to 0 just before it and read just after.  The
@@ -341,6 +362,22 @@ TELEMETRY_PAIRS = 3
 FAULTS = dict(spec_depth=2, kv_pages=97, reservation="lazy",
               mem_watermark=0.0, prefix_cache="on")
 FAULTS_RATE = 0.15
+# [bots]: the BOTS-analog sweep at sizes that make the card work.
+# strassen: A and B 256 MiB each, 49 leaf pairs of 2048^2, 0.84 TFLOP of
+# leaf products; nqueens: 6404 subtree roots (count 73712); sparselu: 100
+# MB of blocks; health: a 16 MiB int32 state; floorplan: the JAX package's
+# size (its small working set is the point of it)
+BOTS_SIZES = {"strassen": dict(n=8192, depth=2),
+              "nqueens": dict(n=13, prefix=4),
+              "sparselu": dict(nb=50, bs=100, band=3),
+              "health": dict(villages=1 << 20, steps=64),
+              "floorplan": dict(n_cells=5)}
+# the paper's best mode per workload (benchmarks/bench_bots.py: Strassen,
+# SparseLU and Health at SMT2, NQueens at SMT4, Floorplan at SMT1) as a
+# degree of suite.DEGREES, whose 1 / 4 / 8 / 16 stand for its 1 / 32 / 64
+# / 128 threads on 32 cores: SMT1 4, SMT2 8, SMT4 16
+PAPER_BEST = {"strassen": 8, "nqueens": 16, "sparselu": 8, "health": 8,
+              "floorplan": 4}
 
 
 class SmokeFailure(RuntimeError):
@@ -3003,6 +3040,114 @@ def serve_subsystems_phase(torch) -> int:
 
 
 # ---------------------------------------------------------------------------
+# [bots]: the paper's degree sweep -> counter corpus -> decision tree
+# ---------------------------------------------------------------------------
+
+
+def bots_phase(torch, sizes=BOTS_SIZES, dev=None) -> None:
+    """[bots]: phase 10 of the module docstring.  ``sizes`` gives each
+    workload's ``build`` arguments, and ``dev`` the device they name (both
+    set to the CPU's to rehearse the phase off the card)."""
+    from repro_torch.bots import nqueens, sparselu, strassen, suite
+    from repro_torch.core.dtree import features
+    dev = dev or torch.device("cuda")
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    if cuda:
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for name in suite.WORKLOADS:
+        for d in suite.DEGREES:
+            row = suite.time_workload(name, d, 3, **sizes[name])
+            check("error" not in row, f"{name} degree {d}: {row.get('error')}")
+            check(not cuda or "device_s" in row,
+                  f"{name} degree {d}: no device time")
+            c = row["counters"]
+            log(f"[bots] {name} degree {d}: wall {row['wall_s'] * 1e3:.3f} "
+                f"ms, device {row.get('device_s', float('nan')) * 1e3:.3f} "
+                f"ms, counted flops {c.flops:.6g}, bytes {c.bytes:.6g}, ops "
+                f"{c.ops}, ai {c.flops / max(c.bytes, 1.0):.4f}, result "
+                f"{row['result']}")
+            rows.append(row)
+    t_sweep = time.perf_counter() - t_phase
+
+    known = {**nqueens.KNOWN, 13: 73712}
+    for row in rows:
+        name, d, res = row["workload"], row["degree"], row["result"]
+        if row["degree"] == 1:
+            c = row["counters"]
+            check(c.flops > 0 and c.bytes > 0,
+                  f"{name}: degree-1 counters {c.flops} flops, {c.bytes} "
+                  f"bytes")
+        if name == "nqueens":
+            check(res == known[sizes[name]["n"]],
+                  f"nqueens degree {d}: {res} solutions")
+        elif name == "health":
+            treated, peak = res
+            size = sizes[name]
+            check(0 < treated <= size["villages"] * size["steps"] * 10
+                  and peak >= 0, f"health degree {d}: treated {treated}, "
+                  f"peak {peak}")
+        elif name == "floorplan":
+            check(12 <= res < 10_000, f"floorplan degree {d}: best {res}")
+
+    # strassen: each degree's product against the f64 product of the same
+    # inputs, within 10x of one f32 torch.matmul's error against it
+    fn, (a, b) = strassen.build(degree=1, **sizes["strassen"])
+    ref = a.double() @ b.double()
+    mm_err = float((torch.matmul(a, b).double() - ref).abs().max())
+    for d in suite.DEGREES:
+        fn, _ = strassen.build(degree=d, **sizes["strassen"])
+        err = float((fn(a, b).double() - ref).abs().max())
+        log(f"[bots] strassen degree {d}: max |C - A.B (f64)| {err:.6g}, "
+            f"f32 torch.matmul's {mm_err:.6g} ({err / mm_err:.3f}x)")
+        check(err <= 10 * mm_err, f"strassen degree {d}: error {err} > 10 "
+              f"x matmul's {mm_err}")
+    del a, b, ref, fn
+
+    # sparselu: the residual, and every degree's LU against degree 1's
+    base = None
+    for d in suite.DEGREES:
+        fn, (blocks,) = sparselu.build(degree=d, **sizes["sparselu"])
+        lu = fn(blocks)
+        res = sparselu.residual(blocks, lu, None)
+        if base is None:
+            base, scale = lu, float(lu.abs().max())
+        diff = float((lu - base).abs().max())
+        log(f"[bots] sparselu degree {d}: residual {res:.6g}, max |LU - "
+            f"LU(degree 1)| {diff:.6g} (max |LU| {scale:.6g})")
+        check(res < 0.05, f"sparselu degree {d}: residual {res}")
+        check(diff <= 1e-5 * scale, f"sparselu degree {d}: LU differs from "
+              f"degree 1's by {diff}")
+    del base, lu, blocks
+
+    tree = suite.train_tree(rows)
+    check(tree is not None, "train_tree returned no tree")
+    X, y = suite.training_corpus(rows)
+    log(f"[bots-table] workload: wall ms | device ms by degree "
+        f"{suite.DEGREES}; best degree (the paper's); the tree's class "
+        f"for its degree-1 counters")
+    for name in suite.WORKLOADS:
+        wr = [r for r in rows if r["workload"] == name]
+        best = min(wr, key=lambda r: r["wall_s"])
+        cells = ", ".join(
+            f"{r['wall_s'] * 1e3:.3f} | "
+            f"{r.get('device_s', float('nan')) * 1e3:.3f}" for r in wr)
+        log(f"[bots-table] {name}: {cells}; best degree {best['degree']} "
+            f"({PAPER_BEST[name]}); tree "
+            f"{tree.predict_one(features(wr[0]['counters']))}")
+    log(f"[bots-table] tree: training accuracy {tree.score(X, y):.3f} on "
+        f"{len(y)} workloads")
+    peak = (f", peak allocated {_gib(torch.cuda.max_memory_allocated())}"
+            if cuda else "")
+    log(f"[bots] phase {time.perf_counter() - t_phase:.1f} s (sweep "
+        f"{t_sweep:.1f} s){peak}")
+    if cuda:
+        _free(torch)
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_all(torch) -> None:
@@ -3097,6 +3242,10 @@ def main() -> int:
         log(f"[card] {card_line()}")
         whisper_phase(torch)
         return 0
+    if sys.argv[1:] == ["--bots"]:
+        log(f"[card] {card_line()}")
+        bots_phase(torch)
+        return 0
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -3154,6 +3303,7 @@ def main() -> int:
     record["launches_vlm"] = vlm_phase(torch)
     whisper_phase(torch)
     record["launches_serve_subsystems"] = serve_subsystems_phase(torch)
+    bots_phase(torch)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
