@@ -204,13 +204,38 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    paper's and the tree's training accuracy (``[bots-table]``), peak
    allocated and the phase's wall.
 
+11. [train-recurrent]: training through the scans' gradient.  First the
+   four scans under grad on the card (``kernels.ops.wkv`` / ``ssd``, f32,
+   B 2 at the families' head widths, T 130 and 256, segments 64 and 128,
+   both modes, chunk 64, a nonzero entry state): the forward launches the
+   kernel once a segment and the backward none, the output within
+   ``ref.KERNEL_TOL`` and every gradient within ``ref.KERNEL_TOL`` x T of
+   autograd through the plain form on the same card.  Then rwkv6-3b and
+   zamba2-2.7b at full width and depth, S 512, bf16 params and f32 AdamW
+   moments from ``Model.init(seed=0)``; B per plan the largest of 8, 4, 2
+   whose count on the meta device fits 85% of the card.  The null plan 3
+   steps for rwkv6-3b and 2 for zamba2-2.7b (device ms a step, tok/s, the
+   share of the bf16 peak by ``model_flops``, peak allocated, AdamW timed
+   alone), every layer remat 1 step, the chunked scans 1 step (the phase
+   is held near 150 s by its steps: a sequential step takes 8-17 s).
+   Gates: finite losses and grad norms, every weight matrix changed under
+   the null plan; the scan kernel's launches a step
+   equal to layers x segments (twice that under remat, whose backward
+   recomputes each layer's forward); remat's step-0 loss (its forward)
+   equal to the null plan's; the chunked scans' within 1e-3 of it; for
+   rwkv6-3b, the state after step 1 carried through the checkpoint format
+   in host memory gives step 2's loss (its forward) bit for bit.  The
+   kernels' JSON record adds each scan's launches on this path
+   (``launches_train``).
+
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits;
 ``python3 chip_smoke.py --train`` runs only the [train] phase,
 ``python3 chip_smoke.py --moe`` only the [moe] phase, ``--vlm`` only
 the [vlm] phase and ``--serve-subsystems`` only phase 9 (each after
 building the paged kernel), ``--whisper`` only the [whisper] phase and
-``--bots`` only phase 10 (no kernel build).
+``--bots`` only phase 10 (no kernel build), ``--train-recurrent`` only
+phase 11 (after building the scan kernels).
 
 Random weights come from a seeded torch.Generator.  The launch counts of
 each serve phase are set to 0 just before it and read just after.  The
@@ -350,6 +375,28 @@ WHISPER_ARCH = "whisper-large-v3"
 WHISPER_SERVE = dict(n_requests=16, prompt=4, gen=(32, 64), slots=8,
                      max_len=448)
 WHISPER_TRAIN = dict(batch=2, seq=448, steps=3, lr=3e-4, remat_batch=4)
+# [train-recurrent]: rwkv6-3b and zamba2-2.7b trained at full width and
+# depth, S 512 (four 128-step segments of the scans' gradient), bf16
+# params and f32 AdamW moments.  B per plan: the largest of `batches`
+# whose count on the meta device (saved tensors, resident params, grads
+# and moments, one layer's backward working set, the f32 logits and their
+# gradient) fits `mem_share` of the card.  The null plan runs `steps`
+# steps (3 for rwkv6-3b, whose resume is checked at step 2), every layer
+# remat `remat_steps`, the chunked scans one.  The
+# chunked step's loss is held to the sequential one's within CHUNK_LOSS_RTOL
+# (bf16 activations downstream of two f32 scans that differ by
+# reassociation).  First the scans' gradient on the card at
+# SCAN_GRAD_CASES ((B, T), segment), f32, at full head width: the
+# autograd Function's grads against autograd through the plain form on
+# the same card, within ref.KERNEL_TOL[f32] scaled by T (the gradient sums
+# over up to T steps).
+RECURRENT_TRAIN = dict(archs=("rwkv6-3b", "zamba2-2.7b"), seq=512,
+                       batches=(8, 4, 2),
+                       steps={"rwkv6-3b": 3, "zamba2-2.7b": 2},
+                       remat_steps=1, lr=3e-4, mem_share=0.85)
+CHUNK_LOSS_RTOL = 1e-3
+SCAN_GRAD_CASES = [((2, 130), 64), ((2, 130), 128), ((2, 256), 64),
+                   ((2, 256), 128)]
 # [telemetry]: the SERVE trace with telemetry off and on (debug level,
 # trace, metrics and event log); tok/s on against off over TELEMETRY_PAIRS
 # interleaved pairs on the warmed engines
@@ -1365,12 +1412,15 @@ def plain_scans():
     from repro_torch.kernels import ops, ref
     saved = ops.wkv, ops.ssd
 
-    def wkv(r, k, v, w, u, s0, *, mode="fused_recurrent", chunk=64):
+    # ``segment`` matters only under grad, which the parity check is not
+    def wkv(r, k, v, w, u, s0, *, mode="fused_recurrent", chunk=64,
+            segment=0):
         if mode == "chunk":
             return ref.wkv_chunk(r, k, v, w, u, s0, chunk)
         return ref.wkv_linear_scan(r, k, v, w, u, s0)
 
-    def ssd(x, b, c, dt, a, s0, *, mode="fused_recurrent", chunk=64):
+    def ssd(x, b, c, dt, a, s0, *, mode="fused_recurrent", chunk=64,
+            segment=0):
         if mode == "chunk":
             return ref.ssd_chunk(x, b, c, dt, a, s0, chunk)
         return ref.ssd_linear_scan(x, b, c, dt, a, s0)
@@ -1920,17 +1970,21 @@ def train_phase(torch) -> None:
 
 def _train_run(torch, model, plan, opt_cfg, data, batches, label,
                params=None, schedule_total=TRAIN["steps"], tag="train",
-               extra=None):
+               extra=None, vectors_may_stay=False, after_step=None,
+               check_changed=True):
     """Train ``model`` from ``Model.init(seed=0)`` (or ``params``) on the
     pipeline's ``batches`` (one step each, each batch with the tensors of
     ``extra`` added: a stubbed frontend's input) with fresh AdamW state; log
     each step's loss, grad norm, lr and device ms (and an MoE model's
-    ce and aux) on ``[tag]`` lines.  Returns (params, state, {"loss",
-    "gnorm", "ce", "aux", "ms", "peak"}), the peak allocated over the
-    steps.  Gates: finite losses and grad norms; every weight matrix and
-    embedding changed (a norm's scale of 1.0 in bf16 keeps an update under
-    half its ulp, 2^-9, rounded away, as the JAX package's bf16 cast
-    does)."""
+    ce and aux) on ``[tag]`` lines; ``after_step(i, params, state)`` is
+    called after step i.  Returns (params, state, {"loss", "gnorm", "ce",
+    "aux", "ms", "peak"}), the peak allocated over the steps.  Gates:
+    finite losses and grad norms; with ``check_changed``, every weight
+    matrix and embedding changed (a norm's scale of 1.0 in bf16 keeps an
+    update under half its ulp, 2^-9, rounded away, as the JAX package's
+    bf16 cast does; with ``vectors_may_stay`` so may any leaf that is a
+    vector per layer, as the recurrent families' ones-initialised
+    ``ln_scale`` and ``d_skip``)."""
     from repro_torch.data.pipeline import batch_at
     from repro_torch.models import layers as L
     from repro_torch.optim import adamw
@@ -1939,7 +1993,8 @@ def _train_run(torch, model, plan, opt_cfg, data, batches, label,
     if params is None:
         params = model.init(0, dtype=torch.bfloat16, device=dev)
     before = {k: t.to("cpu", copy=True)
-              for k, t in _named_leaves(params).items()}
+              for k, t in _named_leaves(params).items()} if check_changed \
+        else None
     opt = adamw.init_state(params)
     step_fn = trainer.make_train_step(model, plan, opt_cfg=opt_cfg,
                                       schedule_total=schedule_total)
@@ -1961,14 +2016,21 @@ def _train_run(torch, model, plan, opt_cfg, data, batches, label,
             f"{run['loss'][-1]:.4f}{moe} grad_norm {run['gnorm'][-1]:.4f} "
             f"lr {m['lr'].item():.3e} device {dms:.3f} ms (host wall "
             f"{wall:.3f} ms)")
+        if after_step is not None:
+            after_step(i, params, opt)
     run["peak"] = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(run["loss"])) and all(np.isfinite(run["gnorm"])),
           f"{label}: non-finite loss or grad norm: {run}")
+    if before is None:
+        return params, opt, run
     same = [k for k, t in _named_leaves(params).items()
             if torch.equal(before[k], t.cpu())]
     log(f"[{tag}] {label}: {len(before) - len(same)}/{len(before)} "
         f"leaves changed; unchanged: {same or 'none'}")
-    check(not [k for k in same if "norm" not in k],
+    vector = (lambda k: _named_leaves(params)[k].dim()
+              - k.startswith("blocks/") < 2)
+    check(not [k for k in same if "norm" not in k
+               and not (vectors_may_stay and vector(k))],
           f"{label}: a weight matrix or embedding did not change: {same}")
     return params, opt, run
 
@@ -3150,6 +3212,339 @@ def bots_phase(torch, sizes=BOTS_SIZES, dev=None) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# train-recurrent phase: rwkv6-3b and zamba2-2.7b trained at full width
+# ---------------------------------------------------------------------------
+
+
+def _model_layout(name, args):
+    """scan_inputs' kernel-layout tensors in the model layout (T before
+    H), contiguous."""
+    if name == "wkv":
+        r, k, v, w, u, s0 = args
+        return [t.transpose(1, 2).contiguous() for t in (r, k, v, w)] + [
+            u, s0]
+    x, b, c, dt, a, s0 = args
+    return [x.transpose(1, 2).contiguous(), b, c,
+            dt.transpose(1, 2).contiguous(), a, s0]
+
+
+def scan_grad_phase(torch) -> None:
+    """The four scans' gradient on the card (``kernels.ops.wkv`` / ``ssd``
+    under grad) at SCAN_GRAD_CASES, both modes, chunk 64, a nonzero entry
+    state: the forward launches the kernel once a segment and the
+    backward launches none; the output within ref.KERNEL_TOL of the plain
+    form's and every gradient (of a random projection of the output and
+    the final state) within ref.KERNEL_TOL x T of autograd through the
+    plain form on the same inputs.  These launches are comparisons: no
+    record counts them."""
+    from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
+    rtol, atol = ref.KERNEL_TOL[torch.float32]
+    chunk = 64
+    t0 = time.perf_counter()
+    for name in ("wkv", "ssd"):
+        for mode in ops.SCAN_MODES:
+            chunked = mode == "chunk"
+            kname = f"{name}_{'chunk' if chunked else 'fused'}"
+            plain = getattr(ref, f"{name}_chunk" if chunked
+                            else f"{name}_linear_scan")
+            for (B, T), seg in SCAN_GRAD_CASES:
+                args = _model_layout(name,
+                                     scan_inputs(torch, name, 11, B, T))
+                g = torch.Generator(device="cuda").manual_seed(T + seg)
+                proj = [torch.randn(t.shape, generator=g, device="cuda")
+                        for t in (args[0], args[5])]
+                got = {}
+                for label in ("kernel", "plain"):
+                    leaves = [t.detach().clone().requires_grad_()
+                              for t in args]
+                    reset_launches()
+                    if label == "kernel":
+                        out, s = getattr(ops, name)(
+                            *leaves, mode=mode, chunk=chunk, segment=seg)
+                        fwd = LAUNCHES[kname]
+                    else:
+                        out, s = (plain(*leaves, chunk) if chunked
+                                  else plain(*leaves))
+                    loss = (out * proj[0]).sum() + (s * proj[1]).sum()
+                    got[label] = ((out.detach(), s.detach()),
+                                  torch.autograd.grad(loss, leaves))
+                    if label == "kernel":
+                        bwd = LAUNCHES[kname] - fwd
+                n_seg = len(ops.segments(T, seg))
+                check(fwd == n_seg and bwd == 0,
+                      f"{kname} B {B} T {T} segment {seg}: {fwd} forward "
+                      f"and {bwd} backward launches, want {n_seg} and 0")
+                (ko, ks), kg = got["kernel"]
+                (po, ps), pg = got["plain"]
+                fwd_ok = (ref.within_tol(ko, po, torch.float32)
+                          and ref.within_tol(ks, ps, torch.float32))
+                worst = max(
+                    ((a - b).abs() / (atol * T + rtol * T * b.abs()))
+                    .max().item() for a, b in zip(kg, pg))
+                big = max(b.abs().max().item() for b in pg)
+                log(f"[train-recurrent] grad {kname} B {B} T {T} segment "
+                    f"{seg}: {n_seg} segment(s), {fwd} launches; forward "
+                    f"{'within' if fwd_ok else 'OUTSIDE'} KERNEL_TOL; grads "
+                    f"at {worst:.3e} of KERNEL_TOL x T (largest grad "
+                    f"{big:.3e})")
+                check(fwd_ok, f"{kname} T {T} segment {seg}: forward "
+                              f"outside KERNEL_TOL")
+                check(worst <= 1.0, f"{kname} T {T} segment {seg}: grads "
+                                    f"outside KERNEL_TOL x T ({worst:.3e})")
+    torch.cuda.synchronize()
+    log(f"[train-recurrent] scan gradient checks in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def meta_saved_bytes(torch, model, plan, B, S) -> int:
+    """Bytes of the tensors the forward of a training step at B x S keeps
+    for the backward beyond the params themselves, counted by storage on
+    the meta device (bf16 params; a remat layer's saves are recomputed in
+    the backward, so they are not counted)."""
+    from repro_torch.models import layers as L
+    from repro_torch.train import trainer
+    params = L.tree_map(lambda sp: torch.empty(
+        sp.shape, dtype=torch.bfloat16, device="meta").requires_grad_(),
+        model.spec())
+    own = {p.untyped_storage()._cdata for p in L.tree_leaves(params)}
+    toks = torch.zeros((B, S), dtype=torch.long, device="meta")
+    saved: dict = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st._cdata not in own:
+            saved[st._cdata] = st.nbytes()
+        return t
+
+    with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+            pack, lambda t: t):
+        trainer.make_loss_fn(model, plan, True)(
+            params, {"tokens": toks, "labels": toks})
+    return sum(saved.values())
+
+
+def _pick_batch(torch, model, plans, S) -> dict:
+    """{plan name: the largest B of RECURRENT_TRAIN["batches"] whose meta
+    count fits mem_share of the card}, each B's count logged."""
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    total = torch.cuda.mem_get_info()[1]
+    n = sum(int(np.prod(sp.shape)) for sp in L.tree_leaves(model.spec()))
+    resident = n * (2 + 2 + 8)          # bf16 params and grads, f32 moments
+    budget = RECURRENT_TRAIN["mem_share"] * total
+    picked, null_saved = {}, {}
+    t0 = time.perf_counter()
+    for name, plan in plans.items():
+        for B in RECURRENT_TRAIN["batches"]:
+            if B not in null_saved:
+                null_saved[B] = meta_saved_bytes(torch, model,
+                                                 plans["null"], B, S)
+            saved = (null_saved[B] if name == "null"
+                     else meta_saved_bytes(torch, model, plan, B, S))
+            layer = null_saved[B] / cfg.n_layers
+            logits = 2 * B * S * cfg.vocab_size * 4
+            need = resident + saved + layer + logits
+            fits = need <= budget
+            log(f"[train-recurrent] {cfg.name} {name} B {B} x S {S} on the "
+                f"meta device: saved {saved / 1e9:.2f} GB + params, grads "
+                f"and moments {resident / 1e9:.2f} GB + a layer's backward "
+                f"{layer / 1e9:.2f} GB + logits and their grad "
+                f"{logits / 1e9:.2f} GB = {need / 1e9:.2f} GB "
+                f"{'<=' if fits else '>'} {budget / 1e9:.2f} GB "
+                f"({RECURRENT_TRAIN['mem_share']:.0%} of the card's "
+                f"{total / 1e9:.2f} GB)")
+            if fits:
+                picked[name] = B
+                break
+        check(name in picked, f"{cfg.name} {name}: no batch fits")
+    log(f"[train-recurrent] {cfg.name}: counted in "
+        f"{time.perf_counter() - t0:.2f} s; batch {picked}")
+    return picked
+
+
+def _forward_loss(torch, model, plan, params, batch) -> float:
+    """The loss a train step computes on ``batch`` (its forward, with grad
+    on and the params requiring it, as in ``trainer.make_grad_fn``), and
+    no backward."""
+    from repro_torch.models import layers as L
+    from repro_torch.train import trainer
+    leaves = [p.detach().requires_grad_() for p in L.tree_leaves(params)]
+    it = iter(leaves)
+    with torch.enable_grad():
+        loss, _ = trainer.make_loss_fn(model, plan, True)(
+            L.tree_map(lambda _: next(it), params), batch)
+    return loss.item()
+
+
+def train_recurrent_arch(torch, arch, launches: dict) -> None:
+    """[train-recurrent] one recurrent config at full width and depth:
+    phase 11 of the module docstring.  Adds each scan kernel's launches
+    on the training path to ``launches``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import roofline
+    from repro_torch.core.policy import (RegionConfig, RegionPlan,
+                                         default_plan, null_plan)
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build, model_flops
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import trainer
+    t_arch = time.perf_counter()
+    dev = torch.device("cuda")
+    rt = RECURRENT_TRAIN
+    model = build(get_config(arch))
+    cfg = model.cfg
+    S, steps = rt["seq"], rt["steps"][arch]
+    scan = "wkv" if cfg.family == "ssm" else "ssd"
+    per_step = cfg.n_layers * len(ops.segments(S))
+    plans = {"null": null_plan(), "remat": default_plan(kind="train")}
+    Bs = _pick_batch(torch, model, plans, S)
+    peak = roofline.peak_ops(torch.bfloat16, roofline.card_for(
+        torch.cuda.get_device_name(0)))
+    opt_cfg = adamw.AdamWConfig(lr=rt["lr"])
+    tag = "train-recurrent"
+    _free(torch)
+
+    # the null plan: steps, launches, and (rwkv6) a resume at step 2 from
+    # the state after step 1 carried through the checkpoint format
+    B = Bs["null"]
+    data = DataConfig(cfg.vocab_size, seq_len=S, global_batch=B, seed=0)
+    snap = {}
+
+    def keep(i, p, o):
+        if i == 1 and steps > 2:
+            t0 = time.perf_counter()
+            state = {"params": p, "opt": o}
+            snap["flat"] = ck._flatten(state)
+            snap["template"] = L.tree_map(
+                lambda t: torch.empty(0, dtype=t.dtype, device=t.device),
+                state)
+            snap["s"] = time.perf_counter() - t0
+
+    reset_launches()
+    params, opt, run = _train_run(
+        torch, model, plans["null"], opt_cfg, data, range(steps),
+        f"{arch} null B {B}", schedule_total=steps, tag=tag,
+        vectors_may_stay=True, after_step=keep)
+    got = LAUNCHES[f"{scan}_fused"]
+    launches[f"{scan}_fused"] += got
+    log(f"[{tag}] {arch} null: {scan}_fused launched {got} times in "
+        f"{steps} steps = {got / steps:g} a step (layers x segments = "
+        f"{cfg.n_layers} x {len(ops.segments(S))} = {per_step}); peak "
+        f"allocated {_gib(run['peak'])}")
+    check(got == steps * per_step,
+          f"{arch}: {got} {scan}_fused launches, want {steps * per_step}")
+    flops = model_flops(cfg, ShapeConfig("train", S, B, "train"))
+    med = float(np.median(run["ms"][1:]))
+    log(f"[{tag}] {arch} null B {B} x S {S}: median step {med:.3f} ms over "
+        f"steps 2-{steps} -> {B * S / med * 1e3:.1f} tok/s; model_flops "
+        f"6·N·B·S {flops / 1e12:.3f} TFLOP = "
+        f"{flops / (med * 1e-3) / peak:.2%} of the bf16 dense peak; peak "
+        f"allocated {_gib(run['peak'])} ({run['peak']} bytes); "
+        f"{card_line()}")
+
+    # AdamW alone (on zero grads: the same reads and writes), and the
+    # rest of the median step, forward + backward
+    grads = L.tree_map(torch.zeros_like, params)
+    up = _event_ms(torch, lambda: adamw.apply_updates(
+        opt_cfg, params, grads, opt, 1.0))[1]
+    del grads
+    log(f"[{tag}] {arch} null split: AdamW {up:.3f} ms (CUDA events), "
+        f"forward+backward the rest of the median step, {med - up:.3f} ms")
+    del params, opt
+    _free(torch)
+    if snap:
+        t0 = time.perf_counter()
+        state = ck._unflatten(snap["template"], snap.pop("flat"))
+        t_back = time.perf_counter() - t0
+        loss2 = _forward_loss(torch, model, plans["null"], state["params"],
+                              batch_at(data, 2, dev))
+        log(f"[{tag}] {arch} resume: the state after step 1 through the "
+            f"checkpoint format in host memory (bf16 params stored as f32, "
+            f"f32 moments; {snap['s']:.1f} s to the host, {t_back:.1f} s "
+            f"back), then step 2's forward: loss {loss2!r} against "
+            f"{run['loss'][2]!r} uninterrupted; AdamW step "
+            f"{state['opt']['step'].item()}")
+        check(loss2 == run["loss"][2] and state["opt"]["step"].item() == 2,
+              f"{arch}: the resumed step 2 differs from the uninterrupted")
+        del state
+        _free(torch)
+
+    # every layer (and shared-attention site) remat from the same init:
+    # step 0's loss on the null plan's batch (the forward, which remat
+    # leaves as it is), then remat_steps steps at its own batch
+    params = model.init(0, dtype=torch.bfloat16, device=dev)
+    loss_r = _forward_loss(torch, model, plans["remat"], params,
+                           batch_at(data, 0, dev))
+    Br = Bs["remat"]
+    data_r = DataConfig(cfg.vocab_size, seq_len=S, global_batch=Br, seed=0)
+    reset_launches()
+    params, opt, rem = _train_run(
+        torch, model, plans["remat"], opt_cfg, data_r,
+        range(rt["remat_steps"]), f"{arch} remat B {Br}", params,
+        schedule_total=steps, tag=tag, check_changed=False)
+    got = LAUNCHES[f"{scan}_fused"]
+    launches[f"{scan}_fused"] += got
+    flops_r = model_flops(cfg, ShapeConfig("train", S, Br, "train"))
+    ms_r = rem["ms"][-1]
+    log(f"[{tag}] {arch} remat B {Br} x S {S}: step 0 loss on the null "
+        f"plan's batch {loss_r!r} (null {run['loss'][0]!r}); last step "
+        f"{ms_r:.3f} ms -> {Br * S / ms_r * 1e3:.1f} tok/s, "
+        f"{flops_r / (ms_r * 1e-3) / peak:.2%} of the bf16 dense peak by "
+        f"model_flops; peak allocated {_gib(rem['peak'])} (null B {B}: "
+        f"{_gib(run['peak'])}); {scan}_fused launched {got} times = "
+        f"{got / rt['remat_steps']:g} a step (the backward recomputes each "
+        f"layer's forward, its scan included: 2 x {per_step})")
+    check(loss_r == run["loss"][0], f"{arch}: remat changed step 0's loss")
+    check(got == 2 * per_step * rt["remat_steps"],
+          f"{arch}: {got} {scan}_fused launches under remat, want "
+          f"{2 * per_step * rt['remat_steps']}")
+    del params, opt
+    _free(torch)
+
+    # one step with the chunked scans (64-step chunks, 128-step segments)
+    chunk_plan = RegionPlan(region_configs={
+        "layer": RegionConfig(scan_mode="chunk")})
+    reset_launches()
+    params, opt, chk = _train_run(
+        torch, model, chunk_plan, opt_cfg, data, range(1),
+        f"{arch} chunk B {B}", schedule_total=steps, tag=tag,
+        check_changed=False)
+    got = LAUNCHES[f"{scan}_chunk"]
+    launches[f"{scan}_chunk"] += got
+    rel = abs(chk["loss"][0] - run["loss"][0]) / abs(run["loss"][0])
+    log(f"[{tag}] {arch} chunked scans B {B}: step 0 loss "
+        f"{chk['loss'][0]!r} ({rel:.3e} of the sequential scans' "
+        f"{run['loss'][0]!r}), {chk['ms'][0]:.3f} ms, peak allocated "
+        f"{_gib(chk['peak'])}; {scan}_chunk launched {got} times")
+    check(rel <= CHUNK_LOSS_RTOL, f"{arch}: the chunked scans' loss is "
+                                  f"{rel:.3e} off the sequential one's")
+    check(got == per_step, f"{arch}: {got} {scan}_chunk launches, want "
+                           f"{per_step}")
+    del params, opt
+    _free(torch)
+    log(f"[{tag}] {arch} done in {time.perf_counter() - t_arch:.1f} s")
+
+
+def train_recurrent_phase(torch) -> dict:
+    """[train-recurrent]: phase 11 of the module docstring.  Returns each
+    scan kernel's launches on the training path."""
+    from repro_torch.kernels import linear_scan as ls
+    t0 = time.perf_counter()
+    _free(torch)
+    scan_grad_phase(torch)
+    launches = {k: 0 for k in ls.NAMES}
+    for arch in RECURRENT_TRAIN["archs"]:
+        train_recurrent_arch(torch, arch, launches)
+    log(f"[train-recurrent] phase in {time.perf_counter() - t0:.1f} s; "
+        f"launches on the training path {launches}")
+    return launches
+
+
 def build_all(torch) -> None:
     """Build every kernel source at once (one nvcc process each), then load
     the libraries; log each build's registers, spills and shared memory."""
@@ -3246,6 +3641,14 @@ def main() -> int:
         log(f"[card] {card_line()}")
         bots_phase(torch)
         return 0
+    if sys.argv[1:] == ["--train-recurrent"]:
+        from repro_torch.kernels import cuda_build
+        from repro_torch.kernels import linear_scan as ls
+        log(f"[card] {card_line()}")
+        cuda_build.build("linear_scan")
+        ls.build()
+        train_recurrent_phase(torch)
+        return 0
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -3304,6 +3707,8 @@ def main() -> int:
     whisper_phase(torch)
     record["launches_serve_subsystems"] = serve_subsystems_phase(torch)
     bots_phase(torch)
+    for name, count in train_recurrent_phase(torch).items():
+        scan_records[name]["launches_train"] = count
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -12,9 +12,14 @@ card.
 
   * flops — 2·M·N·K for ``mm``, ``bmm``, ``addmm``, ``baddbmm`` (and the
     products ``einsum``/``matmul``/``linear`` decompose into), batch
-    included; one per output element for every other op.  View and
+    included; one per output element for every other op.  The HLO count
+    takes a ``broadcast`` and a ``slice`` as one flop an element, so the
+    views ``expand``, ``slice`` and ``select`` count so here (moving no
+    bytes), and so does the broadcast of each smaller tensor operand of a
+    pointwise op (:data:`_MOVES`, :func:`_broadcasts`).  Other view and
     metadata ops are free, as ``parameter``/``bitcast``/``tuple`` are in
-    the HLO count.
+    the HLO count.  A random draw counts :data:`RANDOM_FLOPS` an element:
+    the HLO count of the JAX package's threefry and sampler.
   * bytes — operand bytes plus output bytes per op.  In-place slice
     writes (``index_put_``, ``copy_``, ``scatter``, ``index_copy``) count
     twice the update, not the buffer; gathers of a slice (``index``,
@@ -136,6 +141,18 @@ _SLICE_READS = {"index", "index_select", "gather", "embedding"}
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
          "new_empty_strided"}
 
+#: views that the HLO count takes as data movement (``broadcast``,
+#: ``slice``): one flop an element, no bytes, when the view has more or
+#: fewer elements than its input (a view of all of it is free)
+_MOVES = {"expand", "slice", "select"}
+
+#: flops an element of a random draw: the JAX package's HLO count of the
+#: same draw, threefry bits and sampler, per element at 4096 elements on
+#: the CPU (``jax.random.uniform``, ``randint``, ``poisson`` at rate 3 and
+#: ``binomial`` at p 0.25; ``tests/test_torch_bots.py`` holds each)
+RANDOM_FLOPS = {"rand": 310, "randint": 610, "poisson": 325,
+                "binomial": 1412}
+
 
 def _tensors(obj):
     if isinstance(obj, torch.Tensor):
@@ -161,17 +178,34 @@ def _is_view(func) -> bool:
     return info is not None and not info.is_write
 
 
+def _numel(obj) -> int:
+    return sum(t.numel() for t in _tensors(obj))
+
+
+def _broadcasts(func, args, kwargs, out) -> int:
+    """The elements a pointwise op broadcasts: its output's once for each
+    tensor operand smaller than it (the HLO ``broadcast`` of that
+    operand); 0 for any other op."""
+    if torch.Tag.pointwise not in func.tags:
+        return 0
+    n = _numel(out)
+    return n * sum(1 for t in _tensors((args, kwargs)) if t.numel() < n)
+
+
 def op_counters(func, args, kwargs, out) -> Optional[Counters]:
     """The counters of one dispatched aten op, or None when it is free."""
     if func.namespace != "aten":
         return None
     name = func._schema.name.split("::")[-1]
+    if name in _MOVES:
+        n = _numel(out)
+        return (Counters(flops=float(n), ops=1) if n != args[0].numel()
+                else None)
     if name in _FREE or _is_view(func):
         return None
     c = Counters(ops=1)
     if func in _MATMULS:
-        c.flops = 2.0 * sum(t.numel() for t in _tensors(out)) \
-            * _MATMULS[func](args)
+        c.flops = 2.0 * _numel(out) * _MATMULS[func](args)
         c.bytes = float(_nbytes(args) + _nbytes(out))
     elif name in _SLICE_WRITES:
         i = _SLICE_WRITES[name]
@@ -181,7 +215,8 @@ def op_counters(func, args, kwargs, out) -> Optional[Counters]:
     elif name in _SLICE_READS:
         c.bytes = 2.0 * _nbytes(out)
     else:
-        c.flops = float(sum(t.numel() for t in _tensors(out)))
+        c.flops = float(_numel(out) * RANDOM_FLOPS.get(name, 1)
+                        + _broadcasts(func, args, kwargs, out))
         c.bytes = float(_nbytes(args) + _nbytes(kwargs) + _nbytes(out))
     return c
 

@@ -6,7 +6,13 @@ counters run a step on, :mod:`repro_torch.core.counters`) get an empty
 output of the right shape and dtype, and the call's work from
 :mod:`.work` is noted into the counting region as one op.  Kernel knobs
 from ``RegionConfig`` (block sizes, the scan mode and chunk length)
-surface here as keyword arguments."""
+surface here as keyword arguments.
+
+The scans (:func:`wkv`, :func:`ssd`) are differentiable: under grad they
+run through an autograd Function that mirrors the JAX package's
+``chunked_scan``, whose ``jax.checkpoint`` keeps only the states at
+segment boundaries for the backward (:class:`_ScanGrad`).  The other
+kernels refuse to be differentiated (:func:`_no_grad_path`)."""
 from __future__ import annotations
 
 import torch
@@ -27,16 +33,20 @@ def _meta(shapes, dtype, work_done):
     return outs if len(outs) > 1 else outs[0]
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
 def _no_grad_path(name, *tensors) -> None:
-    """Raise when ``name`` would be differentiated: the hand-written
-    kernels have no backward, and a CUDA kernel's output carries no
-    ``grad_fn``, so the gradients of everything upstream would be dropped
-    on the card while the plain version gave them on the CPU.  The rule
-    is the same on every device; training takes the models' einsum paths
-    (and ``torch.no_grad()`` serving is unaffected)."""
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad
-            for t in tensors):
+    """Raise when ``name`` would be differentiated: the paged attention,
+    matmul and attention kernels have no backward, and a CUDA kernel's
+    output carries no ``grad_fn``, so the gradients of everything upstream
+    would be dropped on the card while the plain version gave them on the
+    CPU.  The rule is the same on every device; training takes the
+    models' einsum paths for these (and ``torch.no_grad()`` serving is
+    unaffected).  The scans have a gradient (:class:`_ScanGrad`)."""
+    if _wants_grad(*tensors):
         raise RuntimeError(
             f"{name}: the kernel has no backward, and an input requires "
             f"grad; call it under torch.no_grad() or on detached inputs")
@@ -97,17 +107,25 @@ def _scan_mode(mode: str) -> bool:
     return mode == "chunk"
 
 
-def wkv(r, k, v, w, u, s0, *, mode: str = "fused_recurrent",
-        chunk: int = 64):
-    """RWKV6 WKV in the model layout: r, k, v, w (B, T, H, N); u (H, N);
-    s0 (B, H, N, N) -> out (B, T, H, N), final state, both f32.
+#: the segment of a scan's gradient when none is given: the JAX
+#: package's ``scan_utils.DEFAULT_CHUNK``
+DEFAULT_SEGMENT = 128
 
-    ``mode``: 'fused_recurrent' runs the sequential recurrence; 'chunk'
-    the matmul-form chunked scan with ``chunk``-step chunks (as given: the
-    model's chunk length reaches the kernel unclamped).  On CUDA the
-    streams move to the kernel layout (B, H, T, N) in f32 and back."""
-    _no_grad_path("wkv", r, k, v, w, u, s0)
-    chunked = _scan_mode(mode)
+
+def segments(T: int, segment: int = 0) -> list:
+    """(start, length) of each segment of a T-step scan under grad:
+    ``segment`` steps each (``DEFAULT_SEGMENT`` for 0), or the whole T in
+    one when ``T <= segment`` or ``segment`` does not divide T — the JAX
+    package's ``chunked_scan`` rule."""
+    seg = segment or DEFAULT_SEGMENT
+    if seg <= 0 or T <= seg or T % seg:
+        return [(0, T)]
+    return [(lo, seg) for lo in range(0, T, seg)]
+
+
+def _wkv_call(r, k, v, w, u, s0, chunked, chunk):
+    """One WKV call on the device of ``r``: the CUDA kernel, the plain
+    version on the CPU, an empty output on meta."""
     if r.device.type == "cuda":
         tr = lambda t: _scan_f32(t.transpose(1, 2))  # noqa: E731
         out, s = _scan.wkv(tr(r), tr(k), tr(v), tr(w), _scan_f32(u),
@@ -123,13 +141,8 @@ def wkv(r, k, v, w, u, s0, *, mode: str = "fused_recurrent",
     raise _no_version("wkv", r.device)
 
 
-def ssd(x, b, c, dt, a, s0, *, mode: str = "fused_recurrent",
-        chunk: int = 64):
-    """Mamba2 SSD in the model layout: x (B, T, H, P); b, c (B, T, N);
-    dt (B, T, H); a (H,); s0 (B, H, P, N) -> y (B, T, H, P), final state,
-    both f32.  ``mode`` and ``chunk`` as in :func:`wkv`."""
-    _no_grad_path("ssd", x, b, c, dt, a, s0)
-    chunked = _scan_mode(mode)
+def _ssd_call(x, b, c, dt, a, s0, chunked, chunk):
+    """One SSD call on the device of ``x``, as :func:`_wkv_call`."""
     if x.device.type == "cuda":
         f32 = _scan_f32
         y, s = _scan.ssd(f32(x.transpose(1, 2)), f32(b), f32(c),
@@ -145,6 +158,104 @@ def ssd(x, b, c, dt, a, s0, *, mode: str = "fused_recurrent",
         return _meta([x.shape, s0.shape], torch.float32,
                      work.ssd(B, H, T, P, b.shape[-1]))
     raise _no_version("ssd", x.device)
+
+
+#: per scan: (the call on any device, the plain forms (sequential,
+#: chunked)); the inputs are four (B, T, ...) streams, one per-head
+#: parameter and the entry state
+_SCANS = {"wkv": (_wkv_call, (ref.wkv_linear_scan, ref.wkv_chunk)),
+          "ssd": (_ssd_call, (ref.ssd_linear_scan, ref.ssd_chunk))}
+
+
+class _ScanGrad(torch.autograd.Function):
+    """A scan with a gradient, as the JAX package's ``chunked_scan``
+    under ``jax.checkpoint``.  The forward runs the scan's call (the CUDA
+    kernel on the card) one segment at a time, each from the last one's
+    final state, and keeps only the inputs and the states at segment
+    boundaries.  The backward goes through the segments last first: it
+    recomputes each with the plain differentiable form of the same mode
+    (:mod:`.ref`) and backpropagates into the segment's inputs and its
+    entry state, whose gradient the segment before receives.  It is plain
+    PyTorch, as the JAX package's backward is XLA's autodiff of its
+    ``lax.scan``: there is no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, name, chunked, chunk, segment, s1, s2, s3, s4, p, s0):
+        call, _ = _SCANS[name]
+        bounds = segments(s1.shape[1], segment)
+        outs, entry, s = [], [], s0
+        for lo, n in bounds:
+            entry.append(s)
+            o, s = call(*(t[:, lo:lo + n] for t in (s1, s2, s3, s4)), p, s,
+                        chunked, chunk)
+            outs.append(o)
+        ctx.scan = (name, chunked, chunk, bounds)
+        ctx.save_for_backward(s1, s2, s3, s4, p, *entry)
+        ctx.set_materialize_grads(False)     # an unused output's grad: None
+        return (outs[0] if len(outs) == 1 else torch.cat(outs, 1)), s
+
+    @staticmethod
+    def backward(ctx, g_out, g_s):
+        name, chunked, chunk, bounds = ctx.scan
+        s1, s2, s3, s4, p, *entry = ctx.saved_tensors
+        plain = _SCANS[name][1][chunked]
+        g_streams, g_p = [], torch.zeros_like(p)
+        for (lo, n), s_in in zip(reversed(bounds), reversed(entry)):
+            with torch.enable_grad():
+                xs = [t[:, lo:lo + n].detach().requires_grad_()
+                      for t in (s1, s2, s3, s4)]
+                pd = p.detach().requires_grad_()
+                sd = s_in.detach().requires_grad_()
+                o, s = plain(*xs, pd, sd, chunk) if chunked else \
+                    plain(*xs, pd, sd)
+                outs, gs = [], []
+                for t, g in ((o, g_out), (s, g_s)):
+                    if g is not None:
+                        outs.append(t)
+                        gs.append(g if t is s else g[:, lo:lo + n])
+                *g_x, g_pi, g_s = torch.autograd.grad(
+                    outs, xs + [pd, sd], gs, allow_unused=True,
+                    materialize_grads=True)
+            g_streams.append(g_x)
+            g_p = g_p + g_pi
+        g_streams.reverse()
+        g_streams = [g[0] if len(g) == 1 else torch.cat(g, 1)
+                     for g in zip(*g_streams)]
+        return (None, None, None, None, *g_streams, g_p, g_s)
+
+
+def wkv(r, k, v, w, u, s0, *, mode: str = "fused_recurrent",
+        chunk: int = 64, segment: int = 0):
+    """RWKV6 WKV in the model layout: r, k, v, w (B, T, H, N); u (H, N);
+    s0 (B, H, N, N) -> out (B, T, H, N), final state, both f32.
+
+    ``mode``: 'fused_recurrent' runs the sequential recurrence; 'chunk'
+    the matmul-form chunked scan with ``chunk``-step chunks (as given: the
+    model's chunk length reaches the kernel unclamped).  On CUDA the
+    streams move to the kernel layout (B, H, T, N) in f32 and back.
+
+    Without grad it is one call on the whole T.  Under grad (an input
+    requires it) the call runs once a ``segment`` (:func:`segments`), and
+    the gradient recomputes each segment with the plain form of ``mode``
+    (:class:`_ScanGrad`); ``segment`` must then be a multiple of
+    ``chunk`` in 'chunk' mode, so that segments split no chunk."""
+    chunked = _scan_mode(mode)
+    if _wants_grad(r, k, v, w, u, s0):
+        return _ScanGrad.apply("wkv", chunked, chunk, segment,
+                               r, k, v, w, u, s0)
+    return _wkv_call(r, k, v, w, u, s0, chunked, chunk)
+
+
+def ssd(x, b, c, dt, a, s0, *, mode: str = "fused_recurrent",
+        chunk: int = 64, segment: int = 0):
+    """Mamba2 SSD in the model layout: x (B, T, H, P); b, c (B, T, N);
+    dt (B, T, H); a (H,); s0 (B, H, P, N) -> y (B, T, H, P), final state,
+    both f32.  ``mode``, ``chunk`` and ``segment`` as in :func:`wkv`."""
+    chunked = _scan_mode(mode)
+    if _wants_grad(x, b, c, dt, a, s0):
+        return _ScanGrad.apply("ssd", chunked, chunk, segment,
+                               x, b, c, dt, a, s0)
+    return _ssd_call(x, b, c, dt, a, s0, chunked, chunk)
 
 
 def matmul(x, y, *, bm: int = 128, bn: int = 128, bk: int = 128):

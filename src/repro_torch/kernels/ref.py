@@ -112,15 +112,16 @@ def wkv_linear_scan(r, k, v, w, u, s0):
 
         out_t = r_t . (S + u (x) k_t v_t^T);   S <- diag(w_t) S + k_t v_t^T
     """
-    r, k, v, w = (t.float() for t in (r, k, v, w))
     u = u.float()
     s = s0.float()
     outs = []
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]        # (B,H,N,N)
-        outs.append(torch.einsum("bhj,bhji->bhi", r[:, t],
+    # one unbind a stream, not an index a step: its backward is one stack,
+    # where indexing would zero-fill a T-step gradient at every step
+    for rt, kt, vt, wt in zip(*(t.float().unbind(1) for t in (r, k, v, w))):
+        kv = kt[:, :, :, None] * vt[:, :, None, :]            # (B,H,N,N)
+        outs.append(torch.einsum("bhj,bhji->bhi", rt,
                                  s + u[..., :, None] * kv))
-        s = w[:, t, :, :, None] * s + kv
+        s = wt[:, :, :, None] * s + kv
     return torch.stack(outs, dim=1), s
 
 
@@ -131,16 +132,15 @@ def ssd_linear_scan(x, b, c, dt, a, s0):
 
         S <- exp(dt_t a) S + (dt_t x_t) (x) b_t;   y_t = S c_t
     """
-    x, b, c, dt = (t.float() for t in (x, b, c, dt))
     a = a.float()
     s = s0.float()
     ys = []
-    for t in range(x.shape[1]):
-        decay = torch.exp(dt[:, t] * a)                       # (B,H)
-        upd = ((dt[:, t, :, None] * x[:, t])[..., :, None]
-               * b[:, t, None, None, :])
+    # one unbind a stream (see wkv_linear_scan)
+    for xt, bt, ct, dtt in zip(*(t.float().unbind(1) for t in (x, b, c, dt))):
+        decay = torch.exp(dtt * a)                            # (B,H)
+        upd = (dtt[:, :, None] * xt)[..., :, None] * bt[:, None, None, :]
         s = decay[..., None, None] * s + upd
-        ys.append(torch.einsum("bhpn,bn->bhp", s, c[:, t]))
+        ys.append(torch.einsum("bhpn,bn->bhp", s, ct))
     return torch.stack(ys, dim=1), s
 
 

@@ -6,10 +6,11 @@ else does).  Handles checkpoint/restart (``--resume``), straggler
 telemetry and plan files from the autotuner.  The port trains on one
 device, and there — as the JAX launcher does on one device — any plan,
 a ``--plan`` file included, is replaced by ``null_plan()``: the launcher
-never remats.  The dense, MoE, VLM and encoder-decoder families train
-(the last two on zero vision embeddings and zero frames, the stubbed
-frontends, as the JAX launcher feeds them, in the params' dtype); rwkv6
-and zamba2 raise (ROADMAP queue 1 item 13).
+never remats.  Every family trains: the VLM and the encoder-decoder on
+zero vision embeddings and zero frames (the stubbed frontends, as the
+JAX launcher feeds them, in the params' dtype), rwkv6 and zamba2 through
+the scan kernels' gradient (:func:`repro_torch.kernels.ops.wkv` /
+``ssd``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
       --steps 50 --batch 8 --seq 128 --ckpt-dir run1

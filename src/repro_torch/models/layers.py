@@ -16,6 +16,7 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import regions
 from repro_torch.core.policy import RegionPlan
 from repro_torch.core.regions import region
 
@@ -211,3 +212,12 @@ def apply_unembed(cfg, p, x: torch.Tensor, plan: RegionPlan) -> torch.Tensor:
         w = p["tokens"].T if cfg.tie_embeddings else p["unembed"]
         logits = x @ w
         return plan.constrain(logits, rpath, ("batch", "seq", "vocab"))
+
+
+def maybe_remat(fn: Callable, x, plan: RegionPlan, rpath: str):
+    """``fn(x)``, recomputed in the backward when grad mode is on and the
+    plan's entry for ``rpath`` sets ``remat`` (``jax.checkpoint`` in the
+    JAX package, :func:`repro_torch.core.regions.remat` here)."""
+    if torch.is_grad_enabled() and plan.config_for(rpath).remat:
+        return regions.remat(fn, x)
+    return fn(x)

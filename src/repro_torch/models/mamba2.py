@@ -75,10 +75,13 @@ def _split_state(state):
     return state["conv_x"], state["conv_bc"], state["s"]
 
 
-def ssd_scan(xh, bt, ct, dt, a, s0):
-    """The exact SSD recurrence (the ``fused_recurrent`` kernel).
+def ssd_scan(xh, bt, ct, dt, a, s0, chunk: int = 0):
+    """The exact SSD recurrence (the ``fused_recurrent`` kernel); under
+    grad ``chunk`` is the gradient's segment (0: 128, see
+    :func:`repro_torch.kernels.ops.segments`), as in the JAX package.
     xh: (B,T,H,P); bt,ct: (B,T,N); dt: (B,T,H); a: (H,); s0: (B,H,P,N)."""
-    return ops.ssd(xh, bt, ct, dt, a, s0, mode="fused_recurrent")
+    return ops.ssd(xh, bt, ct, dt, a, s0, mode="fused_recurrent",
+                   segment=chunk)
 
 
 def _ssd_chunked_bf16(xh, bt, ct, dt, a, s0, C):
@@ -107,20 +110,22 @@ def _ssd_chunked_bf16(xh, bt, ct, dt, a, s0, C):
 
 
 def ssd_chunked(xh, bt, ct, dt, a, s0, chunk: int = 64,
-                precise: bool = False):
+                precise: bool = False, segment: int = 0):
     """Matmul-form SSD (Mamba2's semiseparable decomposition), equivalent
     to :func:`ssd_scan` up to reassociation, per chunk of
     ``C = min(chunk, T)`` steps; when C does not divide T it returns
     :func:`ssd_scan`'s result exactly.  ``precise`` keeps every stream in
     f32 (the ``chunk`` kernel: the serve engine's chunk mode, which keeps
     greedy decode token-identical with the sequential recurrence); without
-    it the intra-chunk matmuls run in bf16 (plain PyTorch)."""
+    it the intra-chunk matmuls run in bf16 (plain PyTorch).  ``segment``:
+    the precise kernel's gradient segment, as in :func:`ssd_scan`."""
     T = xh.shape[1]
     C = min(chunk, T)
     if T % C:
         return ssd_scan(xh, bt, ct, dt, a, s0)
     if precise:
-        return ops.ssd(xh, bt, ct, dt, a, s0, mode="chunk", chunk=C)
+        return ops.ssd(xh, bt, ct, dt, a, s0, mode="chunk", chunk=C,
+                       segment=segment)
     return _ssd_chunked_bf16(xh, bt, ct, dt, a, s0, C)
 
 
@@ -154,12 +159,12 @@ def apply_mamba(cfg, p, x, plan: RegionPlan, state=None, name: str = "ssm"):
         # Serve chunk mode runs precise (f32 streams).
         if knobs.scan_mode == "chunk" and T > 1:
             y, s_new = ssd_chunked(xh, bt, ct, dt, a, s0, knobs.chunk or 64,
-                                   precise=True)
+                                   precise=True, segment=knobs.chunk)
         elif (not knobs.scan_mode
               and (knobs.ssm_impl or "scan") == "chunked" and T > 1):
             y, s_new = ssd_chunked(xh, bt, ct, dt, a, s0, knobs.chunk or 64)
         else:
-            y, s_new = ssd_scan(xh, bt, ct, dt, a, s0)
+            y, s_new = ssd_scan(xh, bt, ct, dt, a, s0, knobs.chunk)
         y = y + p["d_skip"].float()[:, None] * xh
         y = y.reshape(B, T, d_inner).to(x.dtype)
         y = y * F.silu(z)

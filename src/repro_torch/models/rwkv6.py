@@ -4,8 +4,11 @@ with data-dependent decay + channel-mix.
 The WKV recurrence runs through :func:`repro_torch.kernels.ops.wkv`: on
 the card the hand-written kernels (the fused recurrence, or the chunked
 scan under ``scan_mode='chunk'``), on the CPU their plain versions.  The
-chunk length is the ``chunk`` knob of the time-mix region.  Parameters are
-layer-stacked under the JAX package's keys.
+chunk length is the ``chunk`` knob of the time-mix region; under grad it
+is also the segment whose boundary states the scan's gradient keeps (128
+when unset), as in the JAX package.  A layer whose plan entry sets
+``remat`` is recomputed in the backward.  Parameters are layer-stacked
+under the JAX package's keys.
 
 Decode state is O(1) in sequence length: per layer the (B, H, N, N) WKV
 state in f32 and the two token-shift rows in the model dtype.
@@ -22,6 +25,7 @@ from repro_torch.core.regions import region
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Spec, TensorSpec
+from repro_torch.models.transformer import _layer_params, _stack_spec
 
 MIX_RANK = 32
 DECAY_RANK = 64
@@ -66,7 +70,6 @@ def layer_spec(cfg) -> Any:
 
 
 def spec(cfg) -> Any:
-    from repro_torch.models.transformer import _stack_spec
     return {
         "embed": L.embed_spec(cfg),
         "ln_in": L.norm_spec(cfg),
@@ -91,26 +94,29 @@ def _ddlerp(p, x, xs):
     return [mixed[:, :, i, :] for i in range(N_MIX)]
 
 
-def wkv_scan(r, k, v, w, u, s0):
-    """The exact WKV recurrence (the ``fused_recurrent`` kernel).
+def wkv_scan(r, k, v, w, u, s0, chunk: int = 0):
+    """The exact WKV recurrence (the ``fused_recurrent`` kernel); under
+    grad ``chunk`` is the gradient's segment (0: 128, see
+    :func:`repro_torch.kernels.ops.segments`).
 
     r,k,v,w: (B,T,H,N); u: (H,N); s0: (B,H,N,N) with S[j,i] over (key j,
     val i).  Returns out (B,T,H,N), final state, both f32.
     """
-    return ops.wkv(r, k, v, w, u, s0, mode="fused_recurrent")
+    return ops.wkv(r, k, v, w, u, s0, mode="fused_recurrent", segment=chunk)
 
 
-def wkv_chunked(r, k, v, w, u, s0, chunk: int = 64):
+def wkv_chunked(r, k, v, w, u, s0, chunk: int = 64, segment: int = 0):
     """Matmul-form WKV (the ``chunk`` kernel), equivalent to
     :func:`wkv_scan` up to f32 reassociation: the state is read/written
     once per chunk of ``C = min(chunk, T)`` steps.  When C does not divide
     T this returns :func:`wkv_scan`'s result exactly (the ragged
-    contract)."""
+    contract).  ``segment``: the gradient's, as in :func:`wkv_scan`."""
     T = r.shape[1]
     C = min(chunk, T)
     if T % C:
         return wkv_scan(r, k, v, w, u, s0)
-    return ops.wkv(r, k, v, w, u, s0, mode="chunk", chunk=C)
+    return ops.wkv(r, k, v, w, u, s0, mode="chunk", chunk=C,
+                   segment=segment)
 
 
 def _group_norm(p, x, h, n, eps=1e-5):
@@ -149,9 +155,10 @@ def apply_tmix(cfg, p, x, plan: RegionPlan, state=None, name: str = "tmix"):
         # resolved to a concrete mode by the serve engine before planning)
         args = (r.float(), k.float(), v.float(), w, p["u"].float(), s0)
         if knobs.scan_mode == "chunk" and T > 1:
-            out, s_new = wkv_chunked(*args, knobs.chunk or 64)
+            out, s_new = wkv_chunked(*args, knobs.chunk or 64,
+                                     segment=knobs.chunk)
         else:
-            out, s_new = wkv_scan(*args)
+            out, s_new = wkv_scan(*args, knobs.chunk)
         out = out.reshape(B, T, D).to(x.dtype)
         out = _group_norm(p, out, h, n) * F.silu(g)
         y = out @ p["wo"]
@@ -188,20 +195,25 @@ def _layer(cfg, lp, x, plan, li, state=None):
 
 
 def _stack(cfg, params, x, plan, states):
-    """ln_in, every layer (each from ``states[li]``), final norm; returns
-    (x, the layers' new states)."""
+    """ln_in, then every layer (each from ``states[li]``); returns (x, the
+    layers' new states)."""
     x = L.apply_norm(cfg, params["ln_in"], x)
     new = {}
-    for li in range(cfg.n_layers):
-        lp = L.tree_map(lambda a: a[li], params["blocks"])
+    for li, lp in enumerate(_layer_params(params["blocks"], cfg.n_layers)):
         x, new[f"l{li}"] = _layer(cfg, lp, x, plan, li, states(li))
     return x, new
 
 
 def forward(cfg, params, batch, plan: RegionPlan,
             final_logits_only: bool = False):
+    """Full-sequence forward from zero state; a layer whose plan entry
+    sets ``remat`` is recomputed in the backward."""
     x = L.apply_embed(cfg, params["embed"], batch["tokens"], plan)
-    x, _ = _stack(cfg, params, x, plan, lambda li: None)
+    x = L.apply_norm(cfg, params["ln_in"], x)
+    for li, lp in enumerate(_layer_params(params["blocks"], cfg.n_layers)):
+        x = L.maybe_remat(
+            lambda h, lp=lp, li=li: _layer(cfg, lp, h, plan, li)[0], x,
+            plan, f"layer{li}")
     x = L.apply_norm(cfg, params["final_norm"], x)
     if final_logits_only:
         x = x[:, -1:]

@@ -2,10 +2,13 @@
 
 The JAX package's ``chunked_scan`` nests two ``lax.scan``s with a
 ``jax.checkpoint`` around each chunk, so that the backward pass keeps only
-chunk-boundary carries.  That is a device for backward memory; in the
-forward pass it computes exactly a plain scan, which is what this module
-gives: a loop over the leading (time) axis.  The recurrent families' own
-scans run through :func:`repro_torch.kernels.ops.wkv` / ``ssd``.
+chunk-boundary carries.  In the forward pass it computes exactly a plain
+scan, which is what :func:`chunked_scan` here gives: a loop over the
+leading (time) axis.  The recurrent families' own scans run through
+:func:`repro_torch.kernels.ops.wkv` / ``ssd``, whose gradient keeps the
+same segments: the kernels run one segment at a time and only the
+segment-boundary states are kept for the backward, which recomputes each
+segment (``repro_torch.kernels.ops._ScanGrad``).
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Callable
 
 import torch
 
-DEFAULT_CHUNK = 128
+from repro_torch.kernels.ops import DEFAULT_SEGMENT as DEFAULT_CHUNK
 
 
 def chunked_scan(step_fn: Callable, carry, xs, chunk: int = DEFAULT_CHUNK):

@@ -19,7 +19,6 @@ from typing import Any
 
 import torch
 
-from repro_torch.core import regions
 from repro_torch.core.policy import RegionPlan
 from repro_torch.core.regions import region
 from repro_torch.models import attention as attn
@@ -64,15 +63,6 @@ def spec(cfg) -> Any:
     }
 
 
-def _maybe_remat(fn, x, plan: RegionPlan, rpath: str):
-    """``fn(x)``, recomputed in the backward when grad mode is on and the
-    plan's entry for ``rpath`` sets ``remat`` (``jax.checkpoint`` in the
-    JAX package)."""
-    if torch.is_grad_enabled() and plan.config_for(rpath).remat:
-        return regions.remat(fn, x)
-    return fn(x)
-
-
 def encode(cfg, params, frames: torch.Tensor,
            plan: RegionPlan) -> torch.Tensor:
     """frames (B, enc_len, D) -> encoder output (B, enc_len, D): sinusoidal
@@ -92,7 +82,7 @@ def encode(cfg, params, frames: torch.Tensor,
         x = plan.constrain(x, "encoder", ("batch", "enc_seq", "embed"))
         layers = _layer_params(params["enc_blocks"], cfg.n_enc_layers)
         for li, lp in enumerate(layers):
-            x = _maybe_remat(lambda h, lp=lp, li=li: enc_fn(h, lp, li), x,
+            x = L.maybe_remat(lambda h, lp=lp, li=li: enc_fn(h, lp, li), x,
                              plan, f"enc{li}")
         return L.apply_norm(cfg, params["enc_norm"], x)
 
@@ -131,7 +121,7 @@ def forward(cfg, params, batch, plan: RegionPlan,
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)
     layers = _layer_params(params["dec_blocks"], cfg.n_layers)
     for li, lp in enumerate(layers):
-        x = _maybe_remat(
+        x = L.maybe_remat(
             lambda h, lp=lp, li=li: _dec_layer(cfg, lp, h, enc_out, plan,
                                                li)[0],
             x, plan, f"dec{li}")

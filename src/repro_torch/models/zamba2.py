@@ -4,7 +4,10 @@ attention blocks.
 After every ``attn_every``-th mamba block, one shared transformer block
 (attention + MLP, one parameter set reused at every application site) runs.
 Each application site keeps its own KV cache at decode time; the cache's
-``pos`` is one position per batch row (per slot of the serve pool).
+``pos`` is one position per batch row (per slot of the serve pool).  In
+training a mamba block (``layer<li>``) or a site (``shared_attn<site>``)
+whose plan entry sets ``remat`` is recomputed in the backward; the shared
+block's gradient is the sum over its sites.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
 from repro_torch.models.layers import TensorSpec
+from repro_torch.models.transformer import _layer_params, _stack_spec
 
 
 def n_attn_sites(cfg) -> int:
@@ -38,7 +42,6 @@ def shared_spec(cfg) -> Any:
 
 
 def spec(cfg) -> Any:
-    from repro_torch.models.transformer import _stack_spec
     return {
         "embed": L.embed_spec(cfg),
         "blocks": _stack_spec(layer_spec(cfg), cfg.n_layers),
@@ -79,12 +82,17 @@ def _shared_block(cfg, sp, x, plan, site: int, cache=None, pos=None):
 def forward(cfg, params, batch, plan: RegionPlan,
             final_logits_only: bool = False):
     x = L.apply_embed(cfg, params["embed"], batch["tokens"], plan)
+    sp = params["shared"]
     site = 0
-    for li in range(cfg.n_layers):
-        lp = L.tree_map(lambda a: a[li], params["blocks"])
-        x, _ = _mamba_block(cfg, lp, x, plan, li)
+    for li, lp in enumerate(_layer_params(params["blocks"], cfg.n_layers)):
+        x = L.maybe_remat(
+            lambda h, lp=lp, li=li: _mamba_block(cfg, lp, h, plan, li)[0],
+            x, plan, f"layer{li}")
         if _is_site(cfg, li):
-            x, _ = _shared_block(cfg, params["shared"], x, plan, site)
+            x = L.maybe_remat(
+                lambda h, site=site: _shared_block(cfg, sp, h, plan,
+                                                   site)[0],
+                x, plan, f"shared_attn{site}")
             site += 1
     x = L.apply_norm(cfg, params["final_norm"], x)
     if final_logits_only:

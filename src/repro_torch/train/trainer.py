@@ -14,13 +14,14 @@
 * AdamW from :mod:`repro_torch.optim.adamw`, in place, under the
   ``optimizer`` region.
 
-The dense, MoE, VLM and encoder-decoder families train (an MoE model's
-load-balancing aux loss joins the loss at ``AUX_WEIGHT``; a VLM scores
-only the tokens after its vision prefix); the recurrent and hybrid
-models' scans
-run on hand-written kernels (and plain versions) that have no backward,
-and their differentiable scans are not ported yet (ROADMAP queue 1 item
-13).
+Every family trains (an MoE model's load-balancing aux loss joins the
+loss at ``AUX_WEIGHT``; a VLM scores only the tokens after its vision
+prefix).  The recurrent and hybrid models' scans run forward on the
+hand-written kernels one segment at a time, and their gradient
+recomputes each segment with the plain differentiable form
+(:func:`repro_torch.kernels.ops.wkv` / ``ssd``); the attention and
+matmul kernels have no backward, and training takes the einsum paths for
+them.
 """
 from __future__ import annotations
 
@@ -68,18 +69,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return _CrossEntropy.apply(logits, labels.long())
 
 
-def _require_trainable(model: Model) -> None:
-    if model.cfg.family not in ("dense", "moe", "vlm", "encdec"):
-        raise NotImplementedError(
-            f"{model.cfg.name}: training the {model.cfg.family!r} family is "
-            f"not ported yet (ROADMAP queue 1 item 13)")
-
-
 def make_loss_fn(model: Model, plan: Optional[RegionPlan], unroll: bool):
     """loss_fn(params, batch) -> (loss, {"ce", "aux"}).  ``unroll`` is
     accepted for the JAX package's signature and has no effect: eager
     PyTorch runs the layers one by one either way."""
-    _require_trainable(model)
     plan = plan or null_plan()
 
     def loss_fn(params, batch):

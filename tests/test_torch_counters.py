@@ -76,19 +76,20 @@ def test_products_count_batch_included(op, args, flops):
 
 def test_slice_rules_and_free_views():
     """In-place slice writes count twice the update, gathers twice the
-    output, views nothing."""
+    output; a slice one flop an element of it and no bytes (the HLO
+    ``slice``), a reshape nothing."""
     buf = torch.zeros(1000, 64)
     upd = torch.ones(4, 64)
     idx = torch.tensor([1, 5, 9, 700])
 
     def write(b, u, i):
         b[i] = u                    # index_put_
-        b[10:14].copy_(u)           # copy_ into a view
-        b.view(-1)[:5]              # a view: free
+        b[10:14].copy_(u)           # copy_ into a slice
+        b.view(-1)[:5]              # a reshape (free) and a slice
 
     rc = counters.collect(write, buf, upd, idx)
     assert rc.total.bytes == 2 * 2 * upd.numel() * 4
-    assert rc.total.flops == 0 and rc.total.ops == 2
+    assert rc.total.flops == upd.numel() + 5 and rc.total.ops == 4
 
     rc = counters.collect(lambda b, i: b[i], buf, idx)
     assert rc.total.bytes == 2 * 4 * 64 * 4 and rc.total.ops == 1

@@ -49,7 +49,7 @@ from repro.train import trainer as jtrainer
 from repro_torch.configs.registry import get_config
 from repro_torch.core.policy import default_plan, null_plan
 from repro_torch.data.pipeline import DataConfig, batch_at
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 from repro_torch.models.model import build, params_from_numpy
 from repro_torch.optim import adamw
@@ -397,11 +397,18 @@ def test_train_launcher_trains_moe(tmp_path):
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
 def test_non_dense_families_raise(arch):
+    """The recurrent and hybrid families, once refused, now build a train
+    and an eval step, and each runs one step (their losses and grads
+    against the JAX package: ``tests/test_torch_train_recurrent.py``)."""
     model = build(get_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trainer.make_train_step(model)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trainer.make_eval_step(model)
+    params = model.init(0, dtype=torch.float32, device="cpu")
+    opt = adamw.init_state(params)
+    batch = batch_at(DataConfig(model.cfg.vocab_size, 16, 2, seed=0), 0,
+                     "cpu")
+    _, opt, m = trainer.make_train_step(model)(params, opt, batch)
+    assert np.isfinite(m["loss"].item()) and opt["step"].item() == 1
+    m = trainer.make_eval_step(model)(params, batch)
+    assert np.isfinite(m["loss"].item()) and not m["loss"].requires_grad
 
 
 def test_eval_step_matches_the_loss():
@@ -412,12 +419,12 @@ def test_eval_step_matches_the_loss():
     assert torch.equal(m["loss"], loss.detach()) and not m["loss"].requires_grad
 
 
-# -- the kernels have no backward -------------------------------------------
+# -- the kernels have no backward, but for the scans -------------------------
 
 
 def _kernel_calls():
-    """Every ``kernels.ops`` wrapper on small CPU inputs (the last argument
-    of each the one made to require grad)."""
+    """Every ``kernels.ops`` wrapper without a gradient on small CPU inputs
+    (the first argument of each the one made to require grad)."""
     g = torch.Generator().manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     bt = torch.tensor([[1, 2]], dtype=torch.int32)
@@ -428,12 +435,6 @@ def _kernel_calls():
             x, pages, pages, bt, lens), "paged_attention_mq_arg": (1, 1, 2, 2, 8),
         "paged_attention": lambda x: ops.paged_attention(
             x, pages, pages, bt, lens), "paged_attention_arg": (1, 2, 2, 8),
-        "wkv": lambda x: ops.wkv(x, x, x, torch.sigmoid(x), r(2, 4),
-                                 torch.zeros(1, 2, 4, 4)),
-        "wkv_arg": (1, 3, 2, 4),
-        "ssd": lambda x: ops.ssd(x, r(1, 3, 4), r(1, 3, 4), r(1, 3, 2).abs(),
-                                 -r(2).abs(), torch.zeros(1, 2, 4, 4)),
-        "ssd_arg": (1, 3, 2, 4),
         "matmul": lambda x: ops.matmul(x, r(16, 16), bm=16, bn=16, bk=16),
         "matmul_arg": (16, 16),
         "attention": lambda x: ops.attention(x, x, x, block_q=8, block_k=8),
@@ -442,7 +443,7 @@ def _kernel_calls():
 
 
 @pytest.mark.parametrize("name", ["paged_attention_mq", "paged_attention",
-                                  "wkv", "ssd", "matmul", "attention"])
+                                  "matmul", "attention"])
 def test_kernel_wrappers_refuse_to_be_differentiated(name):
     calls = _kernel_calls()
     x = torch.randn(*calls[name + "_arg"])
@@ -451,6 +452,33 @@ def test_kernel_wrappers_refuse_to_be_differentiated(name):
         calls[name](x.requires_grad_())             # grad mode off: runs
     with pytest.raises(RuntimeError, match="no backward"):
         calls[name](x)
+
+
+def _scan_call(scan, x):
+    """``scan`` (a wrapper of ``kernels.ops`` or its plain form) on x
+    (1, 3, 2, 4) and fixed small inputs."""
+    if scan in (ops.wkv, ref.wkv_linear_scan):
+        return scan(x, x, x, torch.sigmoid(x), torch.full((2, 4), 0.3),
+                    torch.zeros(1, 2, 4, 4))
+    return scan(x, torch.full((1, 3, 4), 0.5), torch.full((1, 3, 4), -0.25),
+                torch.full((1, 3, 2), 0.2), torch.full((2,), -1.0),
+                torch.zeros(1, 2, 4, 4))
+
+
+@pytest.mark.parametrize("name", ["wkv", "ssd"])
+def test_scan_wrappers_give_the_plain_forms_grads(name):
+    """``ops.wkv`` and ``ops.ssd``, which refused to be differentiated
+    until their gradient was ported, give the gradient of autograd through
+    their plain forms (held against the JAX package in
+    ``tests/test_torch_train_recurrent.py``)."""
+    x = torch.randn(1, 3, 2, 4, generator=torch.Generator().manual_seed(0))
+    grads = []
+    for scan in (getattr(ops, name), getattr(ref, f"{name}_linear_scan")):
+        t = x.clone().requires_grad_()
+        out, s = _scan_call(scan, t)
+        g, = torch.autograd.grad(out.square().sum() + s.sum(), t)
+        grads.append(g)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-6, atol=1e-7)
 
 
 def test_stacked_leaves_get_one_gradient_op_each():
