@@ -228,6 +228,26 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    kernels' JSON record adds each scan's launches on this path
    (``launches_train``).
 
+12. [tp]: tensor-parallel paged serving.  stablelm-1.6b at full width
+   and depth on two ranks sharing the one card over gloo
+   (``repro_torch.serve.tp.Ranks``: this process is rank 0 and runs the
+   engine, rank 1 a spawned process running the step on its shard); its
+   first line says so.  f32 from ``Model.init(seed=0)`` on phase 3's
+   serve trace at spec_depth 0, tp 2 against a plain tp-1 engine, both
+   eager: every request DONE, greedy tokens equal for every request, the
+   first decode step's logits' largest difference printed.  bf16 at
+   spec_depth 0 and 2, tp 1 (graphs) then tp 2 (eager): every request
+   DONE, the paged kernel's launches on each rank equal to decode steps
+   x layers with the kernel at 16 kv heads on both, each rank's pool
+   bytes half of tp 1's, the allocator's invariants, no leaked page, no
+   fallback, the ``"mesh"`` result at tp 2 with 2 devices and the pools'
+   per-device bytes; tok/s of both printed, not gated (two ranks on one
+   card over gloo: not a tensor-parallel speed).  A worker that dies
+   fails the phase.  The kernel phase also times the paged kernel at the
+   tp-2 shard's shape (KVH 16, G 1, HD 64, bf16, the timed config's
+   lengths) with its bound; the kernels' record of the paged kernel
+   gains ``launches_tp`` (both ranks' launches in the bf16 tp-2 serves).
+
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits;
 ``python3 chip_smoke.py --train`` runs only the [train] phase,
@@ -235,7 +255,8 @@ timed config (both spins and the host time per call) and exits;
 the [vlm] phase and ``--serve-subsystems`` only phase 9 (each after
 building the paged kernel), ``--whisper`` only the [whisper] phase and
 ``--bots`` only phase 10 (no kernel build), ``--train-recurrent`` only
-phase 11 (after building the scan kernels).
+phase 11 (after building the scan kernels), ``--tp`` only phase 12
+(after building the paged kernel).
 
 Random weights come from a seeded torch.Generator.  The launch counts of
 each serve phase are set to 0 just before it and read just after.  The
@@ -660,6 +681,21 @@ def kernel_phase(torch) -> dict:
     torch.cuda.synchronize()
     B, _, KVH, G, HD = args[0].shape
     lengths = [int(x) for x in args[4].cpu()]
+    # the tp-2 shard's shape (phase 12): half the kv heads, same lengths
+    shard = paged_inputs(torch, 12, B, 1, KVH // 2, G, HD, ps, MP, lengths,
+                         torch.bfloat16)
+    got = ops.paged_attention_mq(*shard)
+    want = ref.paged_attention_mq(*shard)
+    live = shard[4] > 0
+    err_tp = float((got.float()[live] - want[live]).abs().max())
+    check(ref.within_tol(got.float()[live], want[live], torch.bfloat16),
+          f"paged_attention_mq at the tp-2 shard's shape disagrees: {err_tp}")
+    ms_tp = time_ms(torch, lambda: ops.paged_attention_mq(*shard))
+    bound_tp, by_tp = paged_work(shard[0], shard[3], shard[4], 1)
+    log(f"[kernel] paged_attention_mq tp-2 shard bf16 B={B} S=1 "
+        f"KVH={KVH // 2} G={G} HD={HD} (the timed config's lengths): "
+        f"max_abs_err={err_tp:.3e} ms={ms_tp:.4f} bound {bound_tp:.5f} ms "
+        f"({by_tp})")
     record = {
         "name": "paged_attention_mq", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -673,6 +709,8 @@ def kernel_phase(torch) -> dict:
                  f"max_pages={MP} lengths={lengths}",
         "ms_vlm": vlm[1][0], "ms_vlm_s3": vlm[3][0],
         "bound_ms_vlm": vlm[1][1],
+        "ms_tp2_shard": ms_tp, "bound_ms_tp2_shard": bound_tp,
+        "max_abs_err_tp2_shard": err_tp,
     }
     log(f"[kernel] timed config {record['shape']}: kernel {ms:.4f} ms "
         f"({record['gb_per_s']:.1f} GB/s, {bound_ms / ms:.1%} of the "
@@ -3102,6 +3140,171 @@ def serve_subsystems_phase(torch) -> int:
 
 
 # ---------------------------------------------------------------------------
+# [tp]: tensor-parallel paged serving, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def _tp_serve(torch, model, params, dev, ranks, depth, grab=None,
+              eager=False, serve=SERVE):
+    """Phase 3's serve trace on the paged engine with attn_impl='paged' at
+    ``depth``: over ``ranks`` at tp 2, or a plain engine at tp 1 (eagerly
+    when ``eager``: as tp 2 runs).  ``grab`` keeps the first decode step's
+    logits of the active slots.  Returns (engine, requests, result)."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.scheduler import Request
+    cfg = ServeConfig(max_len=serve["max_len"], max_slots=serve["max_slots"],
+                      page_size=serve["page_size"],
+                      prefill_chunk=serve["prefill_chunk"],
+                      spec_depth=depth, tp=2 if ranks is not None else 1)
+    where = {"ranks": ranks} if ranks is not None else {"device": dev}
+    eng = Engine(model, params, plan=_plan("paged"), serve_cfg=cfg, **where)
+    if eager:
+        eng._use_graphs = lambda: False
+    if grab is not None:
+        guard = eng._guard
+
+        def first_logits(logits, active):
+            if not grab:
+                grab.append(logits[active].float().clone())
+            return guard(logits, active)
+        eng._guard = first_logits
+    prompts, gens = serve_trace(model.cfg, serve)
+    reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=int(g))
+            for i, (p, g) in enumerate(zip(prompts, gens))]
+    res = eng.serve(reqs)
+    torch.cuda.synchronize()
+    return eng, reqs, res
+
+
+def tp_phase(torch, serve=SERVE) -> list:
+    """[tp]: phase 12 of the module docstring.  Returns the paged
+    kernel's launches in the bf16 tp-2 serves, rank by rank (counted from
+    0 just before each serve)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import LAUNCHES, ops
+    from repro_torch.models.model import build
+    from repro_torch.serve.scheduler import RequestState
+    from repro_torch.serve.tp import Ranks
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    _free(torch)
+    cfg = get_config(ARCH)
+    model = build(cfg)
+    n, L_ = serve["n_requests"], cfg.n_layers
+    with Ranks(cfg, 2, dev) as ranks:
+        log(f"[tp] {ARCH} at full width and depth ({L_} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.resolved_head_dim}, "
+            f"vocab {cfg.vocab_size}) at tp 2 on {ranks.line()}: two ranks "
+            f"on one card")
+        check(ranks.backend == "gloo", f"backend {ranks.backend}: two "
+                                       f"ranks on one card take gloo")
+        # f32: tp 2 against tp 1 (a plain engine), both eager
+        params = model.init(0, dtype=torch.float32, device=dev)
+        toks, first = {}, {}
+        for tp in (1, 2):
+            first[tp] = []
+            t0 = time.perf_counter()
+            eng, reqs, res = _tp_serve(torch, model, params, dev,
+                                       ranks if tp == 2 else None, 0,
+                                       grab=first[tp], eager=True,
+                                       serve=serve)
+            check(all(r.state is RequestState.DONE for r in reqs),
+                  f"f32 tp {tp}: not all requests DONE")
+            toks[tp] = [list(r.out_tokens) for r in reqs]
+            log(f"[tp] f32 spec_depth=0 tp {tp}: {res['stats']['n_done']}/"
+                f"{n} done, {res['steps']} steps in "
+                f"{time.perf_counter() - t0:.1f} s")
+            del eng
+        same = sum(a == b for a, b in zip(toks[1], toks[2]))
+        a, b = first[1][0], first[2][0]
+        check(a.shape == b.shape, "first decode steps differ in slots")
+        diff = float((a - b).abs().max())
+        log(f"[tp] f32 tp 2 vs tp 1: greedy tokens equal for {same}/{n} "
+            f"requests; first decode step's logits ({a.shape[0]} active "
+            f"rows) max_abs_diff={diff:.3e} (max|logit|="
+            f"{float(a.abs().max()):.3f})")
+        check(same == n, "f32 greedy tokens differ between tp 2 and tp 1")
+        del params, a, b, first
+        _free(torch)
+
+        # bf16 at spec_depth 0 and 2: tp 1 (graphs), then tp 2 (eager)
+        params = model.init(0, dtype=torch.bfloat16, device=dev)
+        kvh_seen = set()
+        paged = ops.paged_attention_mq
+
+        def seen(q, *a, **k):
+            kvh_seen.add(q.shape[2])
+            return paged(q, *a, **k)
+        by_rank = [0, 0]
+        for depth in (0, 2):
+            out = {}
+            for tp in (1, 2):
+                ranks.report()                      # the worker's counts: 0
+                kvh_seen.clear()
+                before = LAUNCHES["paged_attention_mq"]
+                ops.paged_attention_mq = seen
+                try:
+                    eng, reqs, res = _tp_serve(
+                        torch, model, params, dev,
+                        ranks if tp == 2 else None, depth, serve=serve)
+                finally:
+                    ops.paged_attention_mq = paged
+                launched = LAUNCHES["paged_attention_mq"] - before
+                pool, s = eng._pool, res["stats"]
+                pool.allocator.check_invariants()
+                check(all(r.state is RequestState.DONE for r in reqs),
+                      f"bf16 tp {tp} spec {depth}: not all requests DONE")
+                check(res["health"]["fallbacks"] == 0,
+                      "safe-plan fallback ran")
+                check(res["page_leaks"] == 0 and pool.leaked_pages() == 0,
+                      "leaked pages")
+                check(launched == res["steps"] * L_,
+                      f"rank 0's kernel launches {launched} != steps "
+                      f"{res['steps']} x {L_} layers")
+                out[tp] = (s["tok_per_s"], pool.per_device_hbm_bytes())
+                line = ""
+                if tp == 2:
+                    (w,) = ranks.report()
+                    mesh = res["mesh"]
+                    check(kvh_seen == {cfg.n_kv_heads // 2} and
+                          w["kv_heads"] == cfg.n_kv_heads // 2,
+                          f"the kernel ran at kv heads {kvh_seen} on rank 0 "
+                          f"and {w['kv_heads']} on rank 1")
+                    check(w["decode_steps"] == res["steps"] and
+                          w["paged_launches"] == res["steps"] * L_,
+                          f"rank 1: {w}, rank 0's steps {res['steps']}")
+                    check(2 * pool.per_device_hbm_bytes() == out[1][1]
+                          and w["page_bytes"] == out[2][1],
+                          f"per-device pool bytes {out[2][1]} (rank 1 "
+                          f"{w['page_bytes']}) are not half of tp 1's "
+                          f"{out[1][1]}")
+                    check(mesh["tp"] == 2 and mesh["devices"] == 2 and
+                          mesh["hbm_bytes_per_device"] == out[2][1],
+                          f"mesh result {mesh}")
+                    by_rank[0] += launched
+                    by_rank[1] += w["paged_launches"]
+                    line = (f", rank 1: {w['decode_steps']} decode + "
+                            f"{w['chunk_steps']} chunk steps, "
+                            f"{w['paged_launches']} kernel launches at "
+                            f"{w['kv_heads']} kv heads; mesh {mesh}")
+                log(f"[tp] bf16 spec_depth={depth} tp {tp}: {s['n_done']}/"
+                    f"{n} done, {s['tokens']} tokens, steps={res['steps']}, "
+                    f"{s['tok_per_s']:.1f} tok/s, rank 0 kernel launches="
+                    f"{launched} at kv heads {sorted(kvh_seen)}, pool "
+                    f"{out[tp][1] / 2**20:.1f} MiB a device{line}")
+                del eng
+                _free(torch)
+            log(f"[tp] bf16 spec_depth={depth}: {out[1][0]:.1f} tok/s at "
+                f"tp 1, {out[2][0]:.1f} tok/s at tp 2 (two ranks on one "
+                f"card over gloo: not a tensor-parallel speed)")
+        del params
+    _free(torch)
+    log(f"[tp] phase {time.perf_counter() - t_phase:.1f} s; paged kernel "
+        f"launches in the bf16 tp-2 serves by rank: {by_rank}")
+    return by_rank
+
+
+# ---------------------------------------------------------------------------
 # [bots]: the paper's degree sweep -> counter corpus -> decision tree
 # ---------------------------------------------------------------------------
 
@@ -3641,6 +3844,14 @@ def main() -> int:
         log(f"[card] {card_line()}")
         bots_phase(torch)
         return 0
+    if sys.argv[1:] == ["--tp"]:
+        from repro_torch.kernels import cuda_build
+        from repro_torch.kernels import paged_attention as pa
+        log(f"[card] {card_line()}")
+        cuda_build.build("paged_attention")
+        pa.build()
+        tp_phase(torch)
+        return 0
     if sys.argv[1:] == ["--train-recurrent"]:
         from repro_torch.kernels import cuda_build
         from repro_torch.kernels import linear_scan as ls
@@ -3709,6 +3920,9 @@ def main() -> int:
     bots_phase(torch)
     for name, count in train_recurrent_phase(torch).items():
         scan_records[name]["launches_train"] = count
+    by_rank = tp_phase(torch)
+    record["launches_tp"] = sum(by_rank)
+    record["launches_tp_by_rank"] = by_rank
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -25,8 +25,12 @@ card.
     twice the update, not the buffer; gathers of a slice (``index``,
     ``index_select``, ``gather``, ``embedding``) twice the output — the
     dynamic-update-slice and dynamic-slice rules of the HLO count.
-  * ops — one per counted op.  Collective fields stay 0: tensor-parallel
-    serving is not ported.
+  * ops — one per counted op.
+  * collectives — a tensor-parallel step's ``all_reduce`` notes itself
+    (:func:`note_collective`) with the JAX package's ring-cost rule: its
+    bytes in and out, the shard bytes, and the bytes through the busiest
+    link of a ring of n ranks, 2·(n-1)/n of the shard; the census counts
+    it by kind.
   * The hand-written kernels are ``ctypes`` calls on ``data_ptr()``s,
     invisible to a dispatch mode.  Their wrappers, handed meta tensors,
     return an empty output and note their work from
@@ -229,6 +233,7 @@ class CountingMode(TorchDispatchMode):
         super().__init__()
         self.total = Counters()
         self.regions: Dict[str, Counters] = defaultdict(Counters)
+        self.census: Dict[str, int] = defaultdict(int)
 
     def note(self, c: Counters) -> None:
         self.total.add(c)
@@ -288,6 +293,28 @@ def note_work(nbytes: float, ops: float) -> None:
                                   ops=1))
 
 
+def collective_cost(kind: str, nbytes: float, n: int) -> tuple:
+    """(shard bytes, ring link bytes) of one collective over ``n`` ranks
+    whose input is ``nbytes`` a rank: the JAX package's ring-cost rule.
+    The port's steps issue all-reduces only."""
+    if kind != "all-reduce":
+        raise ValueError(f"no cost rule for {kind!r}")
+    n = max(n, 1)
+    return nbytes, 2.0 * nbytes * (n - 1) / n
+
+
+def note_collective(kind: str, nbytes: float, n: int) -> None:
+    """Note one collective of ``kind`` over ``n`` ranks with ``nbytes`` of
+    input a rank (its output is as large) into the counting region;
+    nothing when no count is running."""
+    if _active:
+        shard, link = collective_cost(kind, float(nbytes), n)
+        mode = _active[-1]
+        mode.note(Counters(bytes=2.0 * nbytes, collective_bytes=shard,
+                           link_bytes=link, collective_ops=1, ops=1))
+        mode.census[kind] += 1
+
+
 def to_meta(obj):
     """``obj`` with every tensor in it (nested dicts, lists, tuples) moved
     to the meta device; anything else as it is."""
@@ -318,4 +345,4 @@ def collect(fn: Callable, *args: Any, **kwargs: Any) -> RegionCounters:
     finally:
         _active.pop()
     return RegionCounters(total=mode.total, regions=dict(mode.regions),
-                          collective_census={})
+                          collective_census=dict(mode.census))

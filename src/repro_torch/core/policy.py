@@ -6,9 +6,14 @@ default logical-axis rules plus per-region :class:`RegionConfig` overrides
 of every knob (kernel block sizes, paged-KV layout, attention impl,
 speculation depth, memory policy, ...).
 
-This port runs on one device, so a plan carries no mesh:
-:meth:`RegionPlan.constrain` is the identity and the ``rules`` are kept
-only so plans round-trip through JSON unchanged.
+A plan may carry a mesh (:mod:`repro_torch.launch.mesh`): then
+:func:`legal_spec` maps each leaf's logical axes onto it, replicating any
+dim the mapped mesh-axis size does not divide, so every spec the port
+emits is legal by construction.  Activation constraints have no eager
+counterpart except where a partial sum meets them: there
+:meth:`RegionPlan.constrain` all-reduces over the ``model`` axis (the
+collective GSPMD inserts in the JAX package) and is otherwise the
+identity.
 """
 from __future__ import annotations
 
@@ -16,6 +21,12 @@ import dataclasses
 import json
 import re
 from typing import Any, Mapping, Optional, Sequence
+
+# Logical axis vocabulary used by the model zoo.
+LOGICAL_AXES = (
+    "batch", "seq", "kv_seq", "embed", "ff", "heads", "kv_heads", "head_dim",
+    "vocab", "experts", "ssm_heads", "ssm_dim", "state", "enc_seq", "layers",
+)
 
 # The "single global knob" baseline (analog of one OMP_NUM_THREADS value):
 # batch -> data parallel, ff/heads/vocab -> tensor parallel, everything
@@ -37,6 +48,62 @@ DEFAULT_RULES: dict[str, Any] = {
     "enc_seq": None,
     "layers": None,
 }
+
+
+def mesh_shape(mesh) -> dict:
+    """``{axis name: size}`` of a mesh: a ``DeviceMesh``
+    (:mod:`repro_torch.launch.mesh`) or any stand-in whose ``shape`` is
+    already that dict."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return dict(mesh.shape)
+
+
+def _axis_size(mesh, entry) -> int:
+    if entry is None:
+        return 1
+    shape = mesh_shape(mesh)
+    if isinstance(entry, (tuple, list)):
+        n = 1
+        for a in entry:
+            n *= shape[a]
+        return n
+    return shape[entry]
+
+
+def legal_spec(shape: Sequence[int], axes: Sequence[Optional[str]],
+               rules: Mapping[str, Any], mesh) -> tuple:
+    """The partition spec of ``shape`` with logical ``axes`` under
+    ``rules``, as a tuple with one entry per dim — a mesh-axis name, a
+    tuple of names, or None — and the trailing Nones dropped.
+
+    Drops (replicates) any entry whose dim is not divisible by the
+    mesh-axis size, and never assigns one mesh axis to two dims."""
+    if mesh is None:
+        return ()
+    sizes = mesh_shape(mesh)
+    entries = []
+    used: set[str] = set()
+    for dim, ax in zip(shape, axes):
+        entry = rules.get(ax) if ax is not None else None
+        if entry is None:
+            entries.append(None)
+            continue
+        flat = tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+        # drop axes already used or absent from the mesh
+        flat = tuple(a for a in flat if a in sizes and a not in used)
+        size = 1
+        for a in flat:
+            size *= sizes[a]
+        if not flat or size == 1 or dim % size != 0:
+            entries.append(None)
+            continue
+        used.update(flat)
+        entries.append(flat[0] if len(flat) == 1 else flat)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
 
 
 @dataclasses.dataclass
@@ -78,12 +145,13 @@ class RegionConfig:
 
 @dataclasses.dataclass
 class RegionPlan:
-    """Tuning plan: default rules + per-region overrides.
+    """Sharding + tuning plan: default rules + per-region overrides.
 
     ``region_configs`` keys are region-path prefixes; the longest matching
     prefix wins (so a plan can address ``"layer/attn"`` in every layer or
-    ``"layer3/attn"`` in one).
+    ``"layer3/attn"`` in one).  ``mesh`` is None on one device.
     """
+    mesh: Any = None
     rules: dict[str, Any] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_RULES))
     region_configs: dict[str, RegionConfig] = dataclasses.field(
@@ -109,9 +177,34 @@ class RegionPlan:
         merged.update(rc.rules)
         return merged
 
-    def constrain(self, x, region: str, axes: Sequence[Optional[str]]):
-        """Activation sharding constraint: the identity on one device."""
-        return x
+    def constrain(self, x, region: str, axes: Sequence[Optional[str]],
+                  partial: bool = False):
+        """Activation constraint for ``x`` in ``region``.  ``partial``:
+        ``x`` is this rank's partial sum of a product whose contracted dim
+        is split over the ``model`` axis — it is all-reduced over that
+        axis, the collective GSPMD inserts where the JAX package constrains
+        a partial sum.  Otherwise (and always on a plan without a mesh, or
+        whose ``model`` axis is 1) the identity: eager tensors carry no
+        placement to constrain."""
+        if not partial or self.model_size() == 1:
+            return x
+        from repro_torch.distributed import comm
+        return comm.all_reduce(x, self.mesh)
+
+    def model_size(self) -> int:
+        """Width of the mesh's ``model`` (tensor-parallel) axis; 1 without
+        a mesh."""
+        if self.mesh is None:
+            return 1
+        return mesh_shape(self.mesh).get("model", 1)
+
+    def param_sharding(self, shape: Sequence[int],
+                       axes: Sequence[Optional[str]],
+                       region: str = "") -> Optional[tuple]:
+        """The spec of a parameter leaf (None without a mesh)."""
+        if self.mesh is None:
+            return None
+        return legal_spec(shape, axes, self.rules_for(region), self.mesh)
 
     # -- (de)serialisation (plans are artifacts, like PdtTagger's config file)
     def to_json(self) -> str:
@@ -122,7 +215,7 @@ class RegionPlan:
         }, indent=2, default=list)
 
     @staticmethod
-    def from_json(text: str) -> "RegionPlan":
+    def from_json(text: str, mesh=None) -> "RegionPlan":
         raw = json.loads(text)
         rules = {k: tuple(v) if isinstance(v, list) else v
                  for k, v in raw.get("rules", {}).items()}
@@ -132,20 +225,19 @@ class RegionPlan:
             d["rules"] = {kk: tuple(vv) if isinstance(vv, list) else vv
                           for kk, vv in d.get("rules", {}).items()}
             regions[k] = RegionConfig(**d)
-        return RegionPlan(rules={**dict(DEFAULT_RULES), **rules},
+        return RegionPlan(mesh=mesh, rules={**dict(DEFAULT_RULES), **rules},
                           region_configs=regions)
 
 
 def null_plan() -> RegionPlan:
-    """Plan with every knob at its default."""
+    """Plan with no mesh and every knob at its default."""
     return RegionPlan()
 
 
 def default_plan(mesh=None, kind: str = "train") -> RegionPlan:
     """The "single global knob" baseline plan (paper's OMP_NUM_THREADS
     analog): uniform DP(batch)+TP(ff/heads/vocab) rules everywhere, remat on
-    every layer for training.  ``mesh`` is accepted for the JAX package's
-    signature and ignored: a port plan carries no mesh."""
+    every layer for training."""
     regions = {}
     rules = dict(DEFAULT_RULES)
     if kind == "train":
@@ -154,7 +246,9 @@ def default_plan(mesh=None, kind: str = "train") -> RegionPlan:
         regions["dec"] = RegionConfig(remat=True)
         regions["shared_attn"] = RegionConfig(remat=True)
     if kind == "decode":
+        # decode is KV-cache-bound: shard the cache sequence dim over the
+        # model axis, with head-replicated attention activations
         rules["kv_seq"] = "model"
         rules["heads"] = None
         rules["kv_heads"] = None
-    return RegionPlan(rules=rules, region_configs=regions)
+    return RegionPlan(mesh=mesh, rules=rules, region_configs=regions)

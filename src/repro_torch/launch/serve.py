@@ -26,6 +26,11 @@ the mode ``--scan-mode`` resolves.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --dtype float32 --attn-impl paged --spec-depth 2
 
+  # tensor-parallel paged serving: two ranks (here on the CPU, over
+  # gloo; on cuda one rank a card, over nccl, clamped to the cards)
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --dtype float32 --tp 2 --prefill-chunk 8
+
   # the paper loop: online retraining from a cold start, then serving
   # with the saved tree
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -256,10 +261,14 @@ def main(argv=None):
                          "for both phases; 'auto' = chunk for prefill, "
                          "fused for decode")
     ap.add_argument("--tp", default="1", choices=("1", "2", "4", "auto"),
-                    help="tensor-parallel degree: clamps down to the "
-                         "visible devices and a kv-head divisor ('auto' = "
-                         "the plan's tp1/tp2/tp4 knob); a degree above 1 "
-                         "after the clamp is not ported yet")
+                    help="tensor-parallel degree of the paged pool: the "
+                         "launcher starts that many ranks, clamped down to "
+                         "one a visible card (on cuda) and to a kv-head "
+                         "divisor, over nccl (a card each) or gloo (ranks "
+                         "sharing a device, as on the CPU); the paged step "
+                         "runs eagerly above tp 1.  'auto' = as many ranks "
+                         "as tp4 clamps to, the plan's tp1/tp2/tp4 knob "
+                         "picking the degree")
     ap.add_argument("--max-len", type=int, default=0,
                     help="cache length (default: prompt+gen headroom)")
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -331,9 +340,41 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    world = launch_ranks(args, cfg)
+    if world == 1:
+        return _serve(ap, args, cfg, None)
+    from repro_torch.serve.tp import Ranks
+    with Ranks(cfg, world, args.device) as ranks:
+        print(f"[tp] {ranks.line()}")
+        return _serve(ap, args, cfg, ranks)
+
+
+def launch_ranks(args, cfg) -> int:
+    """The ranks ``--tp`` starts: the wanted degree (the widest candidate,
+    4, for 'auto') clamped down to one rank a visible card on cuda and to
+    a divisor of the kv-head count, as the engine clamps; 1 where no
+    paged pool would shard (the slot pool, the static baseline)."""
+    want = 4 if args.tp == "auto" else int(args.tp)
+    paged = (cfg.family in ("dense", "moe", "vlm") and not cfg.swa_window
+             and args.paged != "off" and args.mode == "continuous")
+    if want == 1 or not paged:
+        return 1
+    cards = (torch.cuda.device_count() if torch.device(args.device).type
+             == "cuda" else want)
+    kvh = cfg.n_kv_heads or 1
+    tp = want
+    while tp > 1 and (tp > cards or kvh % tp):
+        tp -= 1
+    return tp
+
+
+def _serve(ap, args, cfg, ranks):
+    """Build the engine (rank 0's, over ``ranks`` when there are any),
+    serve the trace and print the report."""
     model = model_mod.build(cfg)
     dtype = getattr(torch, args.dtype)
-    params = model.init(args.seed, dtype=dtype, device=args.device)
+    device = ranks.device if ranks is not None else args.device
+    params = model.init(args.seed, dtype=dtype, device=device)
     plan = RegionPlan(region_configs={"layer/attn": RegionConfig(
         attn_impl="paged" if args.attn_impl == "paged" else "")})
     max_len = (args.max_len
@@ -344,7 +385,7 @@ def main(argv=None):
         with open(args.dtree) as f:
             dtree = DecisionTree.from_json(f.read())
     engine = Engine(model, params, plan=plan, device=args.device,
-                    dtree=dtree, serve_cfg=ServeConfig(
+                    dtree=dtree, ranks=ranks, serve_cfg=ServeConfig(
         max_len=max_len, temperature=args.temperature, seed=args.seed,
         max_slots=args.slots, eos_id=args.eos_id,
         prefill_bucket=args.prefill_bucket, paged=args.paged,

@@ -38,6 +38,29 @@ def attn_spec(cfg, cross: bool = False) -> Any:
     return p
 
 
+def _heads(cfg, p) -> tuple:
+    """(heads, kv heads, GQA group) of this rank's attention params: the
+    counts come from the weights, so a tensor-parallel shard (heads and
+    kv heads split over the ``model`` axis) runs the same code on its
+    share.  A shard with only one of the two split has no local GQA
+    grouping and raises; the serve engine's degree clamp never builds
+    one."""
+    h, kvh = p["wq"].shape[-2], p["wk"].shape[-2]
+    if (h != cfg.n_heads) != (kvh != cfg.n_kv_heads):
+        raise NotImplementedError(
+            "q heads and kv heads split over the model axis differently")
+    return h, kvh, h // kvh
+
+
+def _finish(cfg, p, attn, plan: RegionPlan, rpath: str) -> torch.Tensor:
+    """(B, S, H, HD) attention output -> (B, S, D) through ``wo``; a
+    heads-split ``wo`` leaves a partial sum, all-reduced over the model
+    axis by the constraint."""
+    out = _out_proj(attn, p["wo"])
+    return plan.constrain(out, rpath, ("batch", "seq", "embed"),
+                          partial=p["wo"].shape[0] != cfg.n_heads)
+
+
 def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     xf = x.float()
     out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
@@ -114,7 +137,7 @@ def apply_attention(cfg, p, x: torch.Tensor, plan: RegionPlan, *,
         q, k, v = _project_qkv(cfg, p, x, kv_x, positions, kv_positions,
                                rope)
         hd = q.shape[-1]
-        kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        h, kvh, g = _heads(cfg, p)
         qg = q.reshape(B, S, kvh, g, hd)
         s = torch.einsum("bqhge,bkhe->bhgqk", qg, k) / math.sqrt(hd)
         valid = None
@@ -128,8 +151,7 @@ def apply_attention(cfg, p, x: torch.Tensor, plan: RegionPlan, *,
                 valid &= dist < cfg.swa_window
         probs = _masked_softmax(s, valid, x.dtype)
         attn = torch.einsum("bhgqk,bkhe->bqhge", probs, v)
-        out = _out_proj(attn.reshape(B, S, cfg.n_heads, hd), p["wo"])
-        return plan.constrain(out, rpath, ("batch", "seq", "embed"))
+        return _finish(cfg, p, attn.reshape(B, S, h, hd), plan, rpath)
 
 
 # ---------------------------------------------------------------------------
@@ -209,13 +231,12 @@ def apply_attention_decode(cfg, p, x, cache, pos, plan: RegionPlan,
             k_pos = idx.expand(B, C)
         valid = (k_pos <= positions) & (k_pos >= 0)            # (B, C)
         hd = q.shape[-1]
-        kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        h, kvh, g = _heads(cfg, p)
         qg = q.reshape(B, 1, kvh, g, hd)
         s = torch.einsum("bqhge,bkhe->bhgqk", qg, cache["k"]) / math.sqrt(hd)
         probs = _masked_softmax(s, valid[:, None, None, None, :], x.dtype)
         attn = torch.einsum("bhgqk,bkhe->bqhge", probs, cache["v"])
-        out = _out_proj(attn.reshape(B, 1, cfg.n_heads, hd), p["wo"])
-        return plan.constrain(out, rpath, ("batch", "seq", "embed")), cache
+        return _finish(cfg, p, attn.reshape(B, 1, h, hd), plan, rpath), cache
 
 
 def _attention_decode_block(cfg, p, x, cache, pos, plan: RegionPlan,
@@ -236,13 +257,12 @@ def _attention_decode_block(cfg, p, x, cache, pos, plan: RegionPlan,
         k_pos = torch.arange(C, device=x.device)
         valid = k_pos[None, None, :] <= positions[:, :, None]   # (B, T, C)
         hd = q.shape[-1]
-        kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        h, kvh, g = _heads(cfg, p)
         qg = q.reshape(B, T, kvh, g, hd)
         s = torch.einsum("bshge,bkhe->bhsgk", qg, cache["k"]) / math.sqrt(hd)
         probs = _masked_softmax(s, valid[:, None, :, None, :], x.dtype)
         attn = torch.einsum("bhsgk,bkhe->bshge", probs, cache["v"])
-        out = _out_proj(attn.reshape(B, T, cfg.n_heads, hd), p["wo"])
-        return plan.constrain(out, rpath, ("batch", "seq", "embed")), cache
+        return _finish(cfg, p, attn.reshape(B, T, h, hd), plan, rpath), cache
 
 
 def prefill_kv(cfg, p, x, plan: RegionPlan, max_len: int,
@@ -332,6 +352,11 @@ def apply_attention_paged_decode(cfg, p, x, pages, block_tables, lengths,
     calls the paged-attention kernel (:mod:`repro_torch.kernels.ops`),
     which reads K/V page by page through the block table in ``block_k``-row
     tiles, all S queries sharing each tile.
+
+    On a tensor-parallel shard ``p`` and ``pages`` hold the rank's heads
+    and kv heads (pages are split on the kv-head axis only: page ids,
+    block tables and lengths are the same on every rank), and the output
+    is all-reduced after ``wo``.
     """
     with region(name) as rpath:
         B, S, _ = x.shape
@@ -339,7 +364,8 @@ def apply_attention_paged_decode(cfg, p, x, pages, block_tables, lengths,
                      + torch.arange(S, device=x.device)[None, :])
         q, k_new, v_new = _qkv_rope(cfg, p, x, positions)
 
-        kvh, hd = cfg.n_kv_heads, q.shape[-1]
+        h, kvh, grp = _heads(cfg, p)
+        hd = q.shape[-1]
         bt_rows = block_tables.repeat_interleave(S, dim=0)       # (B*S, MP)
         offsets = positions.reshape(-1)
         _paged_write(pages["k_pages"], k_new.reshape(B * S, kvh, hd),
@@ -348,7 +374,6 @@ def apply_attention_paged_decode(cfg, p, x, pages, block_tables, lengths,
                      bt_rows, offsets)
         k_pages, v_pages = pages["k_pages"], pages["v_pages"]
 
-        grp = cfg.n_heads // kvh
         qg = q.reshape(B, S, kvh, grp, hd)
         rc = plan.config_for(rpath)
         if rc.attn_impl == "paged":
@@ -366,8 +391,8 @@ def apply_attention_paged_decode(cfg, p, x, pages, block_tables, lengths,
             s = torch.einsum("bshge,bkhe->bhsgk", qg, k) / math.sqrt(hd)
             probs = _masked_softmax(s, valid[:, None, :, None, :], x.dtype)
             attn = torch.einsum("bhsgk,bkhe->bshge", probs, v)
-        out = _out_proj(attn.reshape(B, S, cfg.n_heads, hd), p["wo"])
-        return plan.constrain(out, rpath, ("batch", "seq", "embed")), pages
+        return (_finish(cfg, p, attn.reshape(B, S, h, hd), plan, rpath),
+                pages)
 
 
 def apply_attention_paged_chunk(cfg, p, x, pages, block_table, base,
@@ -397,12 +422,12 @@ def apply_attention_paged_chunk(cfg, p, x, pages, block_table, base,
         v = _paged_gather(pages["v_pages"], block_table[None, :])
         T = k.shape[1]
         hd = q.shape[-1]
-        kvh, grp = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        h, kvh, grp = _heads(cfg, p)
         qg = q.reshape(1, C, kvh, grp, hd)
         s = torch.einsum("bqhge,bkhe->bhgqk", qg, k) / math.sqrt(hd)
         kpos = torch.arange(T, device=x.device)
         causal = kpos[None, :] <= positions[:, None]            # (C, T)
         probs = _masked_softmax(s, causal, x.dtype)
         attn = torch.einsum("bhgqk,bkhe->bqhge", probs, v)
-        out = _out_proj(attn.reshape(1, C, cfg.n_heads, hd), p["wo"])
-        return plan.constrain(out, rpath, ("batch", "seq", "embed")), pages
+        return (_finish(cfg, p, attn.reshape(1, C, h, hd), plan, rpath),
+                pages)

@@ -70,6 +70,19 @@ def init_params(spec_tree: Any, gen: torch.Generator,
     return tree_map(lambda s: s.materialise(gen, dtype, device), spec_tree)
 
 
+def abstract_params(spec_tree: Any,
+                    dtype: torch.dtype = torch.bfloat16) -> Any:
+    """Every Spec leaf as a meta tensor of its shape (dry runs: nothing is
+    allocated)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), spec_tree)
+
+
+def logical_axes(spec_tree: Any) -> Any:
+    """Every Spec leaf's logical axis names."""
+    return tree_map(lambda s: s.axes, spec_tree)
+
+
 def spec_param_count(spec_tree: Any) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(spec_tree))
 
@@ -176,7 +189,10 @@ def mlp_spec(cfg, d_ff: Optional[int] = None) -> Any:
 
 
 def apply_mlp(cfg, p, x: torch.Tensor, plan: RegionPlan,
-              name: str = "mlp") -> torch.Tensor:
+              name: str = "mlp", d_ff: Optional[int] = None) -> torch.Tensor:
+    """``d_ff``: the full hidden width (default ``cfg.d_ff``).  On a
+    tensor-parallel shard ``p`` holds the rank's ff columns, and the down
+    projection's partial sum is all-reduced by the output constraint."""
     with region(name) as rpath:
         h = x @ p["up"]
         if cfg.glu:
@@ -185,7 +201,9 @@ def apply_mlp(cfg, p, x: torch.Tensor, plan: RegionPlan,
             h = activation(cfg, h)
         h = plan.constrain(h, rpath, ("batch", "seq", "ff"))
         out = h @ p["down"]
-        return plan.constrain(out, rpath, ("batch", "seq", "embed"))
+        return plan.constrain(out, rpath, ("batch", "seq", "embed"),
+                              partial=p["down"].shape[0] != (d_ff
+                                                             or cfg.d_ff))
 
 
 # ---------------------------------------------------------------------------
@@ -202,12 +220,30 @@ def embed_spec(cfg) -> Any:
 
 
 def apply_embed(cfg, p, tokens: torch.Tensor, plan: RegionPlan) -> torch.Tensor:
+    """Token embedding lookup.  A vocab-split table (a tensor-parallel
+    shard) holds rows ``[i*Vl, (i+1)*Vl)`` of rank ``i`` on the model
+    axis: ids outside them look up zeros, and the partial rows are
+    all-reduced by the output constraint."""
     with region("embed") as rpath:
-        x = p["tokens"][tokens.long()]
-        return plan.constrain(x, rpath, ("batch", "seq", "embed"))
+        table = p["tokens"]
+        vl = table.shape[0]
+        if vl == cfg.vocab_size:
+            x = table[tokens.long()]
+            return plan.constrain(x, rpath, ("batch", "seq", "embed"))
+        from repro_torch.distributed.comm import model_index
+        ids = tokens.long() - model_index(plan.mesh) * vl
+        hit = (ids >= 0) & (ids < vl)
+        x = table[ids.clamp(0, vl - 1)]
+        x = torch.where(hit[..., None], x, torch.zeros_like(x))
+        return plan.constrain(x, rpath, ("batch", "seq", "embed"),
+                              partial=True)
 
 
 def apply_unembed(cfg, p, x: torch.Tensor, plan: RegionPlan) -> torch.Tensor:
+    """Logits; on a tensor-parallel shard whose unembedding was split on
+    the vocab axis, this rank's vocab block only — replicated once,
+    before sampling, by the serve step
+    (:func:`repro_torch.distributed.comm.replicate_vocab`)."""
     with region("logits") as rpath:
         w = p["tokens"].T if cfg.tie_embeddings else p["unembed"]
         logits = x @ w

@@ -62,6 +62,14 @@ class Model:
         return L.init_params(self.spec(), make_generator(dev, seed), dtype,
                              dev)
 
+    def abstract_params(self, dtype: torch.dtype = torch.bfloat16):
+        """The param tree as meta tensors (shapes and dtype only)."""
+        return L.abstract_params(self.spec(), dtype)
+
+    def logical_axes(self):
+        """The param tree's logical axis names, leaf for leaf."""
+        return L.logical_axes(self.spec())
+
     def forward(self, params, batch, plan: Optional[RegionPlan] = None,
                 unroll: bool = True, final_logits_only: bool = False):
         """(logits, aux).  ``unroll`` is the JAX package's choice between

@@ -107,7 +107,7 @@ def _add_shared(cfg, p, x: torch.Tensor, y: torch.Tensor,
         return y
     sg = torch.sigmoid(x @ p["shared_gate"])
     return y + sg * L.apply_mlp(cfg, p["shared"], x, plan,
-                                name="shared_mlp")
+                                name="shared_mlp", d_ff=cfg.shared_d_ff)
 
 
 DEFAULT_MOE_GROUP = 256

@@ -456,9 +456,14 @@ class PagedKVPool:
         self.max_pages_per_slot = max_pages_per_slot
         # tensor-parallel shard count of the pages (the kv-head dim, as in
         # the JAX package).  Page, slot and watermark arithmetic is in page
-        # counts, which sharding leaves untouched; only the per_device_*
-        # byte views below divide by it.  The port serves at tp 1.
+        # counts, which sharding leaves untouched.  At tp > 1 ``pages``
+        # holds this rank's shard (``page_shapes`` are the shard's), so the
+        # byte views multiply it back up and the per_device_* views are
+        # the shard's own bytes
         self.tp_shards = 1
+        # called as mirror(old, new) after each copy-on-write page copy:
+        # the other ranks' shards copy the same page (None on one rank)
+        self.mirror = None
         self.pages = tree_map(
             lambda shape: torch.zeros(shape, dtype=dtype, device=device),
             page_shapes)
@@ -753,6 +758,8 @@ class PagedKVPool:
             return False
         for t in self.page_tensors():
             t[new].copy_(t[old])            # in place: pages keep identity
+        if self.mirror is not None:
+            self.mirror(old, new)
         self.block_tables[slot, idx] = new
         self.cow_copies += 1
         return True
@@ -779,9 +786,10 @@ class PagedKVPool:
         return tree_leaves(self.pages)
 
     def page_bytes(self) -> int:
-        """Bytes of one page across all layers (K and V)."""
+        """Bytes of one page across all layers (K and V) and all
+        tensor-parallel shards."""
         return sum(t[0].numel() * t.element_size()
-                   for t in self.page_tensors())
+                   for t in self.page_tensors()) * self.tp_shards
 
     def hbm_bytes(self) -> int:
         """Total pool HBM footprint (all pages, live or free)."""

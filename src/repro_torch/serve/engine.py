@@ -74,9 +74,21 @@ JSONL event log, exported as a Perfetto trace and Prometheus text
 never inside a captured graph, and adds no device synchronisation: the
 spans time what the loop dispatches, and a decode step's ``dt_s`` ends
 after its token readback.  Off, ``Engine.telemetry`` is None and each hot
-path pays one ``is not None`` check.  Not ported yet, and raising
-``NotImplementedError`` when asked for: a tensor-parallel degree above 1
-after clamping to the devices (ROADMAP queue 1 item 14).
+path pays one ``is not None`` check.
+
+**Tensor parallelism** (``ranks=``, a :class:`repro_torch.serve.tp.Ranks`):
+the paged pool and the step shard over the ``model`` axis of a ``(1, tp)``
+mesh of ranks, as the JAX engine shards over its devices — pages on the
+kv-head axis, params on their logical axes, the vocab-sharded logits
+replicated once before sampling.  This process is rank 0 and runs the
+host loop; before each device step it broadcasts the step's inputs to the
+other ranks (:mod:`repro_torch.serve.tp`).  The degree is a plan knob,
+clamped to the ranks and to a kv-head divisor; a change of degree (a
+decided switch, the safe-plan fallback's tp 1) reshards the pool and
+switches the params copy.  Steps at tp > 1 run eagerly: a gloo collective
+cannot be captured in a CUDA graph.  Not ported yet, and raising
+``NotImplementedError`` when asked for: tensor-parallel MoE (ROADMAP queue
+1 item 14).
 """
 from __future__ import annotations
 
@@ -102,6 +114,7 @@ from repro_torch.serve.health import HealthMonitor, HealthPolicy
 from repro_torch.serve.memory import MemoryGovernor, MemoryPolicy
 from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
                                          summarize)
+from repro_torch.serve.tp import RankState, paged_logits, serve_plan
 
 
 @dataclasses.dataclass
@@ -157,11 +170,11 @@ class ServeConfig:
                                 # unset = chunk for prefill, fused for
                                 # decode.  Greedy output agrees across
                                 # modes (f32 reassociation only)
-    # -- tensor parallelism (degrees > 1 not ported: item 14) ----------------
+    # -- tensor parallelism (paged pool; serve/tp.py) ------------------------
     tp: int = 0                 # 0 = auto (plan knob, else 1); N pins it.
                                 # The wanted degree clamps down to the
-                                # devices and to a kv-head divisor, as in
-                                # the JAX package: 1 on one device
+                                # ranks and to a kv-head divisor, as in
+                                # the JAX package: 1 without ranks
     # -- failure domains + graceful degradation (serve/{faults,health}.py) ---
     deadline_s: float = 0.0     # default time-to-admission budget (0 = none)
     max_queue: int = 0          # bound on the waiting queue (0 = unbounded)
@@ -251,11 +264,17 @@ class Engine:
     _force_safe = False                 # pin spec0/gather/tp1
     _fallback = None                    # (step, depth, tp) to restore
     device = torch.device("cpu")
+    ranks = None                        # tp.Ranks, or None: one rank
 
     def __init__(self, model: Model, params, plan: Optional[RegionPlan] = None,
                  serve_cfg: Optional[ServeConfig] = None, dtree=None,
-                 device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 device: DeviceLike = None, ranks=None):
+        """``ranks``: a :class:`repro_torch.serve.tp.Ranks` this process
+        is rank 0 of — the paged pool may then shard over them (its
+        device is theirs); None serves on one device."""
+        self.device = (resolve_device(device) if ranks is None
+                       else ranks.device)
+        self.ranks = ranks
         self.model = model
         self.plan = plan or null_plan()
         # a fresh ServeConfig per Engine (a dataclass default instance would
@@ -287,6 +306,9 @@ class Engine:
         self._graphs: dict = {}                     # step or (kind, width)
                                                     # -> StepGraph (cuda)
         self._graph_pool = None                     # their shared memory
+        # -- tensor parallelism ----------------------------------------------
+        self._serve_tp = 1                          # degree of pages/params
+        self._shard: Optional[RankState] = None     # rank 0's share (ranks)
         self._load_bucket: Optional[int] = None
         self.decisions_log: list = []
 
@@ -523,22 +545,20 @@ class Engine:
         return plan.config_for("layer0/attn").prefix_cache == "on"
 
     def _n_devices(self) -> int:
-        """Devices a tensor-parallel step could span: the visible CUDA
-        cards on ``cuda``, else 1."""
-        if self.device.type == "cuda":
-            return torch.cuda.device_count()
-        return 1
+        """Devices a tensor-parallel step could span: the engine's ranks
+        (one device each, or shares of one), else 1."""
+        return self.ranks.world if self.ranks is not None else 1
 
     def tp_for(self, plan: RegionPlan) -> int:
         """tp-degree resolution, as in the JAX package: an explicit
         ServeConfig value pins it; in auto mode the plan's attn-region
         tp_degree knob (the PlanDecider's tp1/tp2/tp4 channel) decides;
-        unset means 1.  The wanted degree then clamps DOWN to the devices
+        unset means 1.  The wanted degree then clamps DOWN to the ranks
         the engine may use and to a divisor of the kv-head count
         (:func:`repro_torch.kernels.paged_attention.shard_kv_heads`), so an
         infeasible candidate class degrades to what the host can run — on
-        one device, 1.  A degree still above 1 after the clamp raises:
-        tensor-parallel serving is not ported yet."""
+        one device, 1.  An MoE model still above 1 after the clamp raises:
+        tensor-parallel MoE is not ported yet."""
         want = self.cfg.tp if self.cfg.tp > 0 else (
             max(plan.config_for("layer0/attn").tp_degree, 0) or 1)
         if self._force_safe:
@@ -550,9 +570,39 @@ class Engine:
             tp -= 1
         from repro_torch.kernels.paged_attention import shard_kv_heads
         shard_kv_heads(kvh, tp)     # the centralised divisibility rule
-        if tp > 1:
-            raise _not_ported(f"tensor-parallel serving (tp={tp})", 14)
+        if tp > 1 and getattr(self.model.cfg, "n_experts", 0):
+            raise _not_ported(f"tensor-parallel MoE (tp={tp})", 14)
         return tp
+
+    # -- tensor parallelism: placement of the pool and the params ------------
+    def _serve_plan(self, plan: RegionPlan, tp: int) -> RegionPlan:
+        """The plan a step at degree ``tp`` runs under
+        (:func:`repro_torch.serve.tp.serve_plan`): ``plan`` itself at 1."""
+        if tp <= 1:
+            return plan
+        return serve_plan(plan, self._shard.mesh(tp))
+
+    @property
+    def _step_params(self):
+        """The params copy matching the current pool placement: this
+        rank's shard at tp > 1, ``self.params`` itself at 1."""
+        if self._shard is None or self._serve_tp == 1:
+            return self.params
+        return self._shard.params[self._serve_tp]
+
+    def _apply_tp(self, tp: int) -> None:
+        """Reshard the pool's pages and pick the params copy for degree
+        ``tp`` (no-op when already there), on every rank: one reshard per
+        change of degree.  Graphs captured over the old pages are
+        dropped."""
+        if self._shard is None or tp == self._serve_tp:
+            return
+        self.ranks.switch(tp)
+        self._shard.switch(tp, fresh=False)
+        self._pool.pages = self._shard.pages
+        self._pool.tp_shards = tp
+        self._serve_tp = tp
+        self._graphs.clear()
 
     def _step_cache_key(self, plan: RegionPlan) -> str:
         """Pool steps are cached by the plan's *step-affecting* content:
@@ -610,9 +660,26 @@ class Engine:
         ps = self.page_size()
         max_pages = pages_for(self.cfg.max_len, ps)
         n_pages = self.cfg.kv_pages or (self.cfg.max_slots * max_pages + 1)
-        self._pool = PagedKVPool(
-            self.model.paged_cache_spec(n_pages, ps), self.cfg.max_slots, ps,
-            n_pages, max_pages, dtype=self._param_dtype(), device=self.device)
+        shapes = self.model.paged_cache_spec(n_pages, ps)
+        dtype = self._param_dtype()
+        tp = self.tp_for(self.plan)
+        if self.ranks is not None:
+            # every rank builds its shard of the pool in place: rank 0's
+            # geometry and degree go out first, then each rank cuts the
+            # page shapes by the kv-head spec
+            from repro_torch.distributed.sharding import local_cache_spec
+            self._shard = RankState(self.model, 0, self.device,
+                                    self.ranks.meshes)
+            self._shard.reset(n_pages, ps, dtype, params=self.params)
+            self.ranks.init(n_pages, ps, dtype, tp)
+            shapes = local_cache_spec(self._serve_plan(self.plan, tp),
+                                      shapes)
+        self._pool = PagedKVPool(shapes, self.cfg.max_slots, ps, n_pages,
+                                 max_pages, dtype=dtype, device=self.device)
+        if self._shard is not None:
+            self._shard.switch(tp, fresh=True, pages=self._pool.pages)
+            self._pool.tp_shards = self._serve_tp = tp
+            self._pool.mirror = self.ranks.copy_page
         self.governor = MemoryGovernor(self._pool, MemoryPolicy(
             reservation=self.reservation_for(self.plan),
             watermark=self.mem_watermark_for(self.plan),
@@ -636,7 +703,7 @@ class Engine:
         act = torch.zeros((B,), dtype=torch.bool, device=dev)
         if not self._paged:
             return [self.params, pool.pool, toks, act, None]
-        return [self.params, pool.pages, toks,
+        return [self._step_params, pool.pages, toks,
                 torch.zeros((B, pool.max_pages_per_slot), dtype=torch.int32,
                             device=dev),
                 torch.zeros((B,), dtype=torch.int32, device=dev), act, None]
@@ -793,17 +860,28 @@ class Engine:
         slot's S logit rows holds a NaN/inf; inactive slots decode the null
         page and are forced healthy.  Returns (step, D, tp); the step
         returns ``(tokens (B, S) int32, finite (B,) bool)`` and writes the
-        pool's pages in place."""
+        pool's pages in place.
+
+        The plan's resolved tp degree shards the step over the ranks
+        (:meth:`_serve_plan`): pages on kv_heads, params on their logical
+        axes, block tables / lengths / tokens the same on every rank.  The
+        vocab-sharded logits replicate right before sampling — the step's
+        single gather — so the sampler and the host's acceptance walk do
+        not depend on the degree."""
         model = self.model
         depth = self.spec_depth_for(plan)
         tp = self.tp_for(plan)
+        self._apply_tp(tp)
+        splan = self._serve_plan(plan, tp)
 
         def forward(params, pages, tokens, block_tables, lengths, active):
-            logits, _ = model.paged_decode(params, pages, tokens,
-                                           block_tables, lengths, plan)
+            logits = paged_logits(model, splan, params, pages, tokens,
+                                  block_tables, lengths)
             return self._guard(logits, active)
 
-        return self._sampled(forward), depth, tp
+        step = self._sampled(forward)
+        step.plan = plan            # what the other ranks run it under
+        return step, depth, tp
 
     # ------------------------------------------------------------------
     # Running the steps: the step functions on the CPU, their CUDA graphs
@@ -811,8 +889,9 @@ class Engine:
     # ------------------------------------------------------------------
     def _use_graphs(self) -> bool:
         """The hot steps replay as CUDA graphs on ``cuda`` and run as the
-        step functions everywhere else."""
-        return self.device.type == "cuda"
+        step functions everywhere else, and at tp > 1 (a gloo collective
+        cannot be captured)."""
+        return self.device.type == "cuda" and self._serve_tp == 1
 
     def _graph(self, key, fn, specs, warmup=None) -> StepGraph:
         """The graph of ``key``, captured at its first use over fresh
@@ -838,8 +917,11 @@ class Engine:
         step replays its key's graph, captured at first use with every slot
         parked on the null page (the zeroed static inputs)."""
         step, pages, dev = self._pool_step, self._pool.pages, self.device
+        if self._serve_tp > 1:
+            # the other ranks run the same step on their shards
+            self.ranks.decode(step.plan, toks, bt, lengths)
         if not self._use_graphs():
-            return step(self.params, pages,
+            return step(self._step_params, pages,
                         *(torch.as_tensor(a, device=dev)
                           for a in (toks, bt, lengths, act)), gen)
         fn = (step if self.cfg.temperature <= 0 else step.forward)
@@ -901,12 +983,14 @@ class Engine:
         prefill — MoE's always — has one width per prompt and runs
         eagerly)."""
         pool, dev = self._pool, self.device
+        if self._serve_tp > 1:
+            self.ranks.chunk(self.plan, chunk, pool.block_tables[slot], base)
         if not (self._use_graphs() and self._chunked_prefill()):
             self.model.paged_prefill_chunk(
-                self.params, pool.pages,
+                self._step_params, pool.pages,
                 torch.as_tensor(chunk[None], device=dev),
                 torch.as_tensor(pool.block_tables[slot], device=dev), base,
-                self.plan)
+                self._serve_plan(self.plan, self._serve_tp))
             return
 
         def run(tokens, block_table, base_t):
@@ -988,7 +1072,11 @@ class Engine:
         key = self._step_cache_key(plan)
         if key not in self._pool_steps:
             self._pool_steps[key] = self._build_step(plan)
-        self._pool_step, self._spec_depth, _ = self._pool_steps[key]
+        self._pool_step, self._spec_depth, step_tp = self._pool_steps[key]
+        # a cache hit can still be a tp switch (the decider flipping back
+        # to a degree it built earlier): reshard the pool and the params
+        # to the placement the step runs on
+        self._apply_tp(step_tp)
         self.decisions_log.append((n_active, decisions))
 
     # ------------------------------------------------------------------
@@ -1212,9 +1300,9 @@ class Engine:
             pool = self._pool
             obs["memory"] = self.governor.summary()
             # mesh placement, as the JAX package reports it: page bytes
-            # are per device (pages shard on kv_heads, so each device holds
+            # are per device (pages shard on kv_heads, so each rank holds
             # 1/tp of every page); page and watermark counts are
-            # tp-invariant.  The port serves at tp 1.
+            # tp-invariant
             obs["mesh"] = {
                 "tp": pool.tp_shards,
                 "devices": self._n_devices(),
@@ -1270,24 +1358,27 @@ class Engine:
         :meth:`_exit_fallback`.  The slot pool has no safe plan to pin."""
         if self._fallback is not None or not self._paged:
             return
-        prev = (self._pool_step, self._spec_depth, 1)
+        prev = (self._pool_step, self._spec_depth, self._serve_tp)
         self._force_safe = True
         plan = self._safe_plan()
         key = self._step_cache_key(plan)
         if key not in self._pool_steps:
             self._pool_steps[key] = self._build_paged_step(plan)
-        self._pool_step, self._spec_depth, _ = self._pool_steps[key]
+        step, depth, tp = self._pool_steps[key]
+        self._apply_tp(tp)
+        self._pool_step, self._spec_depth = step, depth
         self._fallback = prev
         self.health.taps["fallbacks"] += 1
 
     def _exit_fallback(self):
-        """Recovered: restore the pre-fallback step and ask the decider to
-        re-decide on the next step."""
+        """Recovered: restore the pre-fallback step and placement and ask
+        the decider to re-decide on the next step."""
         if self._fallback is None:
             return
-        step, depth, _ = self._fallback
+        step, depth, tp = self._fallback
         self._fallback = None
         self._force_safe = False
+        self._apply_tp(tp)
         self._pool_step, self._spec_depth = step, depth
         self._force_replan = True
 

@@ -482,19 +482,14 @@ def _plan_with_tp(P, tp_degree):
 def test_tp_for_resolution_precedence_and_clamping(monkeypatch, n_dev,
                                                    tp_pin, n_kv, want_tp,
                                                    clamped):
-    """The port clamps like the JAX package (device count, then kv-head
-    divisibility); where a degree above 1 remains it raises, since
-    tensor-parallel serving is not ported."""
+    """The port clamps like the JAX package (its ranks as JAX's device
+    count, then kv-head divisibility) and returns the clamped degree."""
     import jax
     monkeypatch.setattr(jax, "devices", lambda: [None] * n_dev)
     monkeypatch.setattr(tengine.Engine, "_n_devices", lambda self: n_dev)
     teng, jeng = _stub_engines(tp_pin, n_kv)
     assert jeng.tp_for(_plan_with_tp(J, want_tp)) == clamped
-    if clamped == 1:
-        assert teng.tp_for(_plan_with_tp(T, want_tp)) == 1
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teng.tp_for(_plan_with_tp(T, want_tp))
+    assert teng.tp_for(_plan_with_tp(T, want_tp)) == clamped
 
 
 def test_step_cache_keys_on_resolved_tp_and_nothing_else(monkeypatch):
@@ -590,7 +585,7 @@ def _decode_obs(o):
         (o // 6) % 3], float(o) if o % 5 else math.nan)
 
 
-@settings(max_examples=25)
+@settings(max_examples=25, deadline=None)
 @given(obs=st.lists(
     st.integers(min_value=0, max_value=59), min_size=0, max_size=40))
 def test_corpus_merge_equals_sequential_append(obs):
@@ -614,7 +609,7 @@ def test_corpus_merge_equals_sequential_append(obs):
     both(run)
 
 
-@settings(max_examples=15)
+@settings(max_examples=15, deadline=None)
 @given(obs=st.lists(
     st.integers(min_value=0, max_value=59), min_size=1, max_size=30))
 def test_corpus_jsonl_bytes_identical_and_cross_loadable(obs):
@@ -645,7 +640,7 @@ def test_corpus_jsonl_bytes_identical_and_cross_loadable(obs):
         os.rmdir(d)
 
 
-@settings(max_examples=20)
+@settings(max_examples=20, deadline=None)
 @given(seed=st.integers(min_value=0, max_value=10_000),
        n=st.integers(min_value=2, max_value=40),
        k=st.integers(min_value=1, max_value=4))

@@ -21,7 +21,9 @@ for m in ("repro_torch.serve.graphs", "repro_torch.optim.adamw",
           "repro_torch.train.checkpoint", "repro_torch.train.elastic",
           "repro_torch.train.trainer", "repro_torch.launch.train",
           "repro_torch.models.moe", "repro_torch.models.whisper",
-          "repro_torch.serve.telemetry"):
+          "repro_torch.serve.telemetry", "repro_torch.serve.tp",
+          "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+          "repro_torch.distributed.comm"):
     assert m in mods, (m, mods)
 for m in mods:
     importlib.import_module(m)

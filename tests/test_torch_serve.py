@@ -22,7 +22,7 @@ from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import ServeConfig as JServeConfig
 from repro.serve.scheduler import Request as JRequest
 from repro_torch.configs.registry import get_config
-from repro_torch.core.policy import RegionConfig, RegionPlan
+from repro_torch.core.policy import RegionConfig, RegionPlan, null_plan
 from repro_torch.kernels import LAUNCHES
 from repro_torch.models.model import build, params_from_numpy
 from repro_torch.serve import cache
@@ -216,9 +216,10 @@ def test_features_outside_the_slice_raise(models, monkeypatch):
     the decision tree and the online loop: tests/test_torch_autotune_serve
     .py; MoE: tests/test_torch_moe.py; telemetry:
     tests/test_torch_telemetry.py.)  A tensor-parallel degree clamps
-    down to the devices, as in the JAX package, so it raises only where
-    more than one device remains.  An encoder-decoder model builds, and
-    the engine refuses to serve it with continuous batching, as the JAX
+    down to the ranks, as in the JAX package, and resolves without a
+    raise (served at tp 2: tests/test_torch_tp_serving.py); only an MoE
+    model above tp 1 raises.  An encoder-decoder model builds, and the
+    engine refuses to serve it with continuous batching, as the JAX
     engine does (tests/test_torch_whisper.py)."""
     _, _, model, tparams = models
     whisper = build(get_config("whisper-large-v3").reduced())
@@ -232,9 +233,12 @@ def test_features_outside_the_slice_raise(models, monkeypatch):
     tp2 = RegionPlan(region_configs={"layer/attn": RegionConfig(tp_degree=2)})
     monkeypatch.setattr(Engine, "_n_devices", lambda self: 2)
     for kw in (dict(plan=tp2), dict(serve_cfg=ServeConfig(tp=2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(model, tparams, device="cpu", **kw).serve(
-                _traces([np.arange(4)], [2])[1])
+        eng = Engine(model, tparams, device="cpu", **kw)
+        assert eng.tp_for(eng.plan) == 2
+    moe = build(get_config("qwen2-moe-a2.7b").reduced())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(moe, {}, device="cpu", serve_cfg=ServeConfig(tp=2)).tp_for(
+            null_plan())
 
 
 @pytest.mark.parametrize("arrival", ["poisson", "burst"])
