@@ -23,8 +23,9 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    full length at the two GQA widths, in f32 and bf16, S 1
    and 3, block_k 0 and 8, each call timed with its achieved GB/s; at the
    timed config it is also timed after a ~100 us spin (the timer's
-   earlier spin) and its host time per call is measured, torch.profiler
-   must count exactly the CUDA kernels the design launches per call (one),
+   earlier spin) and its host time per call is measured, one call
+   captured into a CUDA graph must hold exactly the CUDA kernels the
+   design launches per call (one; torch.profiler cross-checks),
    and one call under ``torch.cuda.set_sync_debug_mode("error")`` must
    raise nothing (the wrapper reads no device value on the host).  The
    four scan kernels are held and timed at every shape of SCAN_SHAPES
@@ -32,7 +33,8 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    floor is timed (a do-nothing launch, ``[timer]``), and the fused scan
    wrappers' host time a call is measured at 8 slots through
    ``kernels.ops`` (``[host]``);
-   each scan's CUDA kernels a call are counted by torch.profiler against
+   each scan's CUDA kernels a call are counted from a captured graph
+   (torch.profiler cross-checks) against
    ``linear_scan.kernels_per_call`` (the fused ones one at 8 slots; the
    chunk ones three for several chunks, two for one) with one call under
    sync debug mode, and ``wkv_chunk`` is
@@ -213,18 +215,18 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    autograd through the plain form on the same card.  Then rwkv6-3b and
    zamba2-2.7b at full width and depth, S 512, bf16 params and f32 AdamW
    moments from ``Model.init(seed=0)``; B per plan the largest of 8, 4, 2
-   whose count on the meta device fits 85% of the card.  The null plan 3
-   steps for rwkv6-3b and 2 for zamba2-2.7b (device ms a step, tok/s, the
+   whose count on the meta device fits 85% of the card.  The null plan 2
+   steps for rwkv6-3b and 1 for zamba2-2.7b (device ms a step, tok/s, the
    share of the bf16 peak by ``model_flops``, peak allocated, AdamW timed
    alone), every layer remat 1 step, the chunked scans 1 step (the phase
-   is held near 150 s by its steps: a sequential step takes 8-17 s).
+   is held near 120 s by its steps: a sequential step takes 8-25 s).
    Gates: finite losses and grad norms, every weight matrix changed under
    the null plan; the scan kernel's launches a step
    equal to layers x segments (twice that under remat, whose backward
    recomputes each layer's forward); remat's step-0 loss (its forward)
    equal to the null plan's; the chunked scans' within 1e-3 of it; for
-   rwkv6-3b, the state after step 1 carried through the checkpoint format
-   in host memory gives step 2's loss (its forward) bit for bit.  The
+   rwkv6-3b, the state after step 0 carried through the checkpoint format
+   in host memory gives step 1's loss (its forward) bit for bit.  The
    kernels' JSON record adds each scan's launches on this path
    (``launches_train``).
 
@@ -232,10 +234,12 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    and depth on two ranks sharing the one card over gloo
    (``repro_torch.serve.tp.Ranks``: this process is rank 0 and runs the
    engine, rank 1 a spawned process running the step on its shard); its
-   first line says so.  f32 from ``Model.init(seed=0)`` on phase 3's
-   serve trace at spec_depth 0, tp 2 against a plain tp-1 engine, both
-   eager: every request DONE, greedy tokens equal for every request, the
-   first decode step's logits' largest difference printed.  bf16 at
+   first line says so.  Every serve of the phase runs TP_SERVE, half of
+   phase 3's trace with generations of 16-32 (cut to make room for phase
+   13).  f32 from ``Model.init(seed=0)`` at spec_depth 0, tp 2 against a
+   plain tp-1 engine, both eager: every request DONE, greedy tokens equal
+   for every request, the first decode step's logits' largest difference
+   printed.  bf16 at
    spec_depth 0 and 2, tp 1 (graphs) then tp 2 (eager): every request
    DONE, the paged kernel's launches on each rank equal to decode steps
    x layers with the kernel at 16 kv heads on both, each rank's pool
@@ -248,6 +252,29 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    lengths) with its bound; the kernels' record of the paged kernel
    gains ``launches_tp`` (both ranks' launches in the bf16 tp-2 serves).
 
+13. [dryrun]: the port's dry-run (``repro_torch.launch.dryrun``) in a
+   subprocess that sees no card, so that its fake process group never
+   meets a gloo group: stablelm-1.6b at full width, train_4k, prefill_32k
+   and decode_32k on the 16x16 mesh over a fake world of 256 ranks and
+   train_4k on 2x16x16 over 512, each row's compact lines printed as the
+   JAX package's ``run_cell`` prints them; then the two-rank train cells
+   of [train-sharded] on its (data, model) meshes.  Gate: every cell
+   ``ok``.
+   [train-sharded]: the sharded trainer through the launcher
+   (``repro_torch.launch.train.main``, this process rank 0): stablelm-1.6b
+   at full width and depth, bf16 params and f32 moments from
+   ``Model.init(seed=0)``, B 4 x S 512 from the pipeline, on two ranks
+   sharing the one card over gloo (its first line says so): one step on
+   one rank, then 2 steps on (data 2, model 1) with ZeRO-1 and on (data 1,
+   model 2).  Gates: finite losses and grad norms on both ranks; step 0's
+   loss within 1e-2 (relative) of the one-rank step's; under ZeRO-1 each
+   rank's moment bytes exactly half of one rank's; rank 0's allocated
+   bytes after placement (params and optimizer state) within 1% of the
+   dry-run's ``argument_size_in_bytes`` for the same cell.  Printed, not
+   gated: the measured peak against the dry-run's, and ms a step (two
+   ranks on one card over gloo: not a speed).  A rank that dies fails the
+   phase.
+
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits;
 ``python3 chip_smoke.py --train`` runs only the [train] phase,
@@ -256,7 +283,8 @@ the [vlm] phase and ``--serve-subsystems`` only phase 9 (each after
 building the paged kernel), ``--whisper`` only the [whisper] phase and
 ``--bots`` only phase 10 (no kernel build), ``--train-recurrent`` only
 phase 11 (after building the scan kernels), ``--tp`` only phase 12
-(after building the paged kernel).
+(after building the paged kernel), ``--dryrun`` only phase 13 (no kernel
+build).
 
 Random weights come from a seeded torch.Generator.  The launch counts of
 each serve phase are set to 0 just before it and read just after.  The
@@ -413,7 +441,7 @@ WHISPER_TRAIN = dict(batch=2, seq=448, steps=3, lr=3e-4, remat_batch=4)
 # over up to T steps).
 RECURRENT_TRAIN = dict(archs=("rwkv6-3b", "zamba2-2.7b"), seq=512,
                        batches=(8, 4, 2),
-                       steps={"rwkv6-3b": 3, "zamba2-2.7b": 2},
+                       steps={"rwkv6-3b": 2, "zamba2-2.7b": 1},
                        remat_steps=1, lr=3e-4, mem_share=0.85)
 CHUNK_LOSS_RTOL = 1e-3
 SCAN_GRAD_CASES = [((2, 130), 64), ((2, 130), 128), ((2, 256), 64),
@@ -608,9 +636,9 @@ def kernel_phase(torch) -> dict:
     PAGED_SHAPES (f32 and bf16, S 1 and 3, block_k 0 and 8), each call
     timed with its achieved GB/s; at the timed config (bf16, S 1, block_k
     0) also the plain version, the library call and the bound, the CUDA
-    kernels one wrapper call launches (torch.profiler) and one call under
-    ``torch.cuda.set_sync_debug_mode("error")``.  Returns the kernel's
-    record."""
+    kernels one wrapper call launches (:func:`kernels_per_call`) and one
+    call under ``torch.cuda.set_sync_debug_mode("error")``.  Returns the
+    kernel's record."""
     from library_yardsticks import dense_paged_inputs, paged_attention_library
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as pa
@@ -724,15 +752,19 @@ def kernel_phase(torch) -> dict:
 
 
 def kernels_per_call(torch, fn, calls: int = 20) -> int:
-    """The CUDA kernels one call of ``fn`` launches, counted by
-    torch.profiler over ``calls`` calls (after a warm-up call, which may
-    make buffers): every device op the profiler records, divided by
-    ``calls`` and rounded (the profiler can miss an op at the edge of its
-    window).  A window that recorded no device op at all measured nothing
-    and is taken once more."""
+    """The CUDA kernels one call of ``fn`` launches (after a warm-up call,
+    which may make buffers): the kernel, copy and memset nodes of one call
+    captured into a CUDA graph (:func:`graph_device_ops`), an exact count
+    that needs no tracer.  torch.profiler counts the same over ``calls``
+    calls as a cross-check (every device op it records, divided by
+    ``calls`` and rounded): a call that ran an op the capture missed (on
+    another stream) shows there as more, which fails; fewer is CUPTI
+    dropping activity records (a window of none was seen on an H100), and
+    is logged, not counted."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    n_graph = graph_device_ops(torch, fn)
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -742,9 +774,51 @@ def kernels_per_call(torch, fn, calls: int = 20) -> int:
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
             break
-    log(f"[kernel] profiler: {calls} calls ran {len(names)} device op(s): "
+    log(f"[kernel] captured graph: {n_graph} device op(s) a call; profiler: "
+        f"{calls} calls ran {len(names)} device op(s): "
         f"{sorted(set(n[:60] for n in names))}")
-    return round(len(names) / calls)
+    n_prof = round(len(names) / calls)
+    check(n_prof <= n_graph, f"torch.profiler counts {n_prof} CUDA kernels "
+                             f"a call, the captured graph {n_graph}")
+    return n_graph
+
+
+def graph_device_ops(torch, fn) -> int:
+    """The kernel, memcpy and memset nodes of one call of ``fn`` captured
+    into a CUDA graph (``torch.cuda.graph``, read through the driver's
+    ``cuGraphGetNodes`` / ``cuGraphNodeGetType``).  The capture stream
+    runs one call first, as the engine's graphs warm up: a wrapper's first
+    call on a stream may make (and zero) buffers it keeps for that stream.
+    Capture records and runs nothing."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=side):
+        fn()
+    try:
+        raw = ctypes.c_void_p(g.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0,
+              "cuGraphGetNodes failed")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0,
+              "cuGraphGetNodes failed")
+        kinds = []
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                        ctypes.byref(kind)) == 0,
+                  "cuGraphNodeGetType failed")
+            kinds.append(kind.value)
+    finally:
+        g.reset()
+    # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET
+    return sum(k in (0, 1, 2) for k in kinds)
 
 
 def scan_inputs(torch, name, seed, B, T):
@@ -816,10 +890,10 @@ def scan_rate(torch) -> str:
 
 
 def scan_checks(torch, name, args, chunk) -> tuple:
-    """A scan kernel's CUDA kernels a call (torch.profiler), held to
-    ``linear_scan.kernels_per_call`` (one for the fused kernels), and one
-    call under sync debug mode 'error' (the wrapper reads nothing back and
-    synchronises nothing)."""
+    """A scan kernel's CUDA kernels a call (:func:`kernels_per_call`),
+    held to ``linear_scan.kernels_per_call`` (one for the fused kernels),
+    and one call under sync debug mode 'error' (the wrapper reads nothing
+    back and synchronises nothing)."""
     from repro_torch.kernels import linear_scan as ls
     T = args[0].shape[2]
     n = kernels_per_call(torch, scan_kernel_call(name, args, chunk))
@@ -3176,7 +3250,12 @@ def _tp_serve(torch, model, params, dev, ranks, depth, grab=None,
     return eng, reqs, res
 
 
-def tp_phase(torch, serve=SERVE) -> list:
+# phase 12's serves (tp 2 over gloo runs ~30 tok/s): half of phase 3's
+# trace with shorter generations, room for phase 13 in the smoke's budget
+TP_SERVE = dict(SERVE, n_requests=8, gen=(16, 32))
+
+
+def tp_phase(torch, serve=TP_SERVE) -> list:
     """[tp]: phase 12 of the module docstring.  Returns the paged
     kernel's launches in the bf16 tp-2 serves, rank by rank (counted from
     0 just before each serve)."""
@@ -3302,6 +3381,151 @@ def tp_phase(torch, serve=SERVE) -> list:
     log(f"[tp] phase {time.perf_counter() - t_phase:.1f} s; paged kernel "
         f"launches in the bf16 tp-2 serves by rank: {by_rank}")
     return by_rank
+
+
+# ---------------------------------------------------------------------------
+# [dryrun] and [train-sharded]: the dry-run over fake worlds, and the
+# sharded trainer on two ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# [train-sharded]: stablelm-1.6b at full width and depth, B 4 x S 512, 2
+# steps on each (data, model) mesh of two ranks after one step on one
+# rank; step 0's loss within LOSS_RTOL of the one-rank step's (bf16
+# products summed in another order: over two half batches, or over two
+# halves of the heads, ff and vocab, each rank rounding its part)
+SHARDED_TRAIN = dict(batch=4, seq=512, steps=2, meshes=((2, 1), (1, 2)),
+                     loss_rtol=1e-2, alloc_rtol=0.01)
+
+_DRYRUN_CHILD = r"""
+import json, sys
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+out, arch, st = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+codes = []
+for argv in (["--mesh", "single"], ["--shape", "train_4k", "--mesh", "multi"]):
+    try:
+        dryrun.main(["--arch", arch, "--out", out, "--force"] + argv)
+    except SystemExit as e:
+        codes.append(e.code or 0)
+shape = ShapeConfig("train_%d" % st["seq"], st["seq"], st["batch"], "train")
+cells = {}
+for dims in st["meshes"]:
+    row = dryrun.run_cell(arch, shape, False, verbose=False, microbatch=1,
+                          mesh_dims=tuple(dims))
+    cells["x".join(map(str, dims))] = row["memory"]
+print("DRYRUN " + json.dumps({"codes": codes, "cells": cells}))
+"""
+
+
+def dryrun_phase(torch) -> dict:
+    """[dryrun]: phase 13 of the module docstring.  Returns the memory of
+    the two-rank train cells of SHARDED_TRAIN, by mesh label."""
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "dryrun_torch.jsonl"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if out.exists():
+        out.unlink()
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run(
+        [sys.executable, "-c", _DRYRUN_CHILD, str(out), ARCH,
+         json.dumps(SHARDED_TRAIN)], env=env, capture_output=True,
+        text=True, timeout=600)
+    for line in res.stdout.splitlines():
+        if line.startswith(("[", "  ", "SKIP", "dry-run")):
+            log(f"[dryrun] {line}")
+    check(res.returncode == 0, f"the dry-run failed:\n{res.stderr[-3000:]}")
+    got = json.loads([ln for ln in res.stdout.splitlines()
+                      if ln.startswith("DRYRUN ")][-1][len("DRYRUN "):])
+    rows = [json.loads(ln) for ln in out.read_text().splitlines()]
+    cells = {(r["shape"], r["mesh"]) for r in rows if r.get("ok")}
+    want = {(s, "16x16") for s in ("train_4k", "prefill_32k", "decode_32k")}
+    want.add(("train_4k", "2x16x16"))
+    check(got["codes"] == [0, 0] and cells == want and len(rows) == 4,
+          f"dry-run cells {sorted(cells)}, exit codes {got['codes']}")
+    for name, mem in got["cells"].items():
+        log(f"[dryrun] {ARCH} train B {SHARDED_TRAIN['batch']} x S "
+            f"{SHARDED_TRAIN['seq']} on a {name} mesh: arguments "
+            f"{mem['argument_size_in_bytes']} bytes, peak "
+            f"{_gib(mem['peak_bytes_per_device'])} a rank")
+    log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
+    return got["cells"]
+
+
+def train_sharded_phase(torch, predicted: dict) -> None:
+    """[train-sharded]: phase 13 of the module docstring, through the
+    launcher (``repro_torch.launch.train.main``, this process rank 0)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as launch_train
+    st = SHARDED_TRAIN
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    log(f"[train-sharded] {ARCH} at full width and depth ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}), bf16 params and f32 moments, B "
+        f"{st['batch']} x S {st['seq']}, on two ranks sharing one card "
+        f"over gloo (ranks share a device): two ranks on one card")
+    base = ["--full", "--device", "cuda", "--batch", str(st["batch"]),
+            "--seq", str(st["seq"]), "--log-every", "1"]
+    build_dir = ROOT / "build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+
+    def run(extra, tag):
+        path = build_dir / f"smoke_sharded_{tag}.json"
+        _free(torch)
+        t = time.perf_counter()
+        launch_train.main(base + extra + ["--stats-out", str(path)])
+        ranks = json.loads(path.read_text())["ranks"]
+        path.unlink()
+        log(f"[train-sharded] {tag}: {time.perf_counter() - t:.1f} s of "
+            f"launcher")
+        return ranks
+
+    (one,) = run(["--steps", "1"], "one-rank")
+    check(np.isfinite(one["loss"][0]), "one-rank loss is not finite")
+    log(f"[train-sharded] one rank: step 0 loss {one['loss'][0]:.6f}, grad "
+        f"norm {one['grad_norm'][0]:.4f}, moments {one['moment_bytes']} "
+        f"bytes, {one['step_ms'][0]:.1f} ms")
+    for d, m in st["meshes"]:
+        name = f"{d}x{m}"
+        ranks = run(["--ranks", "2", "--data", str(d), "--model", str(m),
+                     "--steps", str(st["steps"])], f"data {d} model {m}")
+        check(len(ranks) == 2, f"{name}: stats of {len(ranks)} ranks")
+        for r in ranks:
+            check(all(np.isfinite(r["loss"])) and
+                  all(np.isfinite(r["grad_norm"])),
+                  f"{name} rank {r['rank']}: a loss or grad norm is not "
+                  f"finite: {r['loss']} {r['grad_norm']}")
+        r0 = ranks[0]
+        gap = abs(r0["loss"][0] - one["loss"][0]) / abs(one["loss"][0])
+        log(f"[train-sharded] {name}: losses {r0['loss']}, grad norms "
+            f"{r0['grad_norm']}; step 0's loss {gap:.3e} of the one-rank "
+            f"step's (tolerance {st['loss_rtol']:g})")
+        check(gap <= st["loss_rtol"], f"{name}: step 0 loss {r0['loss'][0]} "
+              f"against the one rank's {one['loss'][0]}")
+        if d == 2:
+            check(all(2 * r["moment_bytes"] == one["moment_bytes"]
+                      for r in ranks),
+                  f"{name}: moment bytes {[r['moment_bytes'] for r in ranks]}"
+                  f" are not half of one rank's {one['moment_bytes']}")
+        want = predicted[name]["argument_size_in_bytes"]
+        got = r0["allocated_after_placement"]
+        log(f"[train-sharded] {name}: rank 0 allocated after placement "
+            f"{got} bytes against the dry-run's arguments {want} "
+            f"({got / want - 1:+.4%}); moments a rank "
+            f"{[r['moment_bytes'] for r in ranks]}; peak allocated "
+            f"{_gib(r0['peak_allocated'])} against the dry-run's "
+            f"{_gib(predicted[name]['peak_bytes_per_device'])}; ms a step "
+            f"(host clock to the loss's readback) "
+            f"{[round(x, 1) for x in r0['step_ms']]} (two ranks on one card "
+            f"over gloo: not a speed)")
+        check(abs(got - want) <= st["alloc_rtol"] * want,
+              f"{name}: allocated {got} against the dry-run's {want}")
+    _free(torch)
+    log(f"[train-sharded] phase {time.perf_counter() - t0:.1f} s")
+
+
+def sharded_phase(torch) -> None:
+    """Phase 13: [dryrun] then [train-sharded]."""
+    train_sharded_phase(torch, dryrun_phase(torch))
 
 
 # ---------------------------------------------------------------------------
@@ -3612,14 +3836,14 @@ def train_recurrent_arch(torch, arch, launches: dict) -> None:
     tag = "train-recurrent"
     _free(torch)
 
-    # the null plan: steps, launches, and (rwkv6) a resume at step 2 from
-    # the state after step 1 carried through the checkpoint format
+    # the null plan: steps, launches, and (rwkv6) a resume at step 1 from
+    # the state after step 0 carried through the checkpoint format
     B = Bs["null"]
     data = DataConfig(cfg.vocab_size, seq_len=S, global_batch=B, seed=0)
     snap = {}
 
     def keep(i, p, o):
-        if i == 1 and steps > 2:
+        if i == 0 and steps > 1:
             t0 = time.perf_counter()
             state = {"params": p, "opt": o}
             snap["flat"] = ck._flatten(state)
@@ -3642,9 +3866,10 @@ def train_recurrent_arch(torch, arch, launches: dict) -> None:
     check(got == steps * per_step,
           f"{arch}: {got} {scan}_fused launches, want {steps * per_step}")
     flops = model_flops(cfg, ShapeConfig("train", S, B, "train"))
-    med = float(np.median(run["ms"][1:]))
+    med = float(np.median(run["ms"][1:] or run["ms"]))
+    over = f"steps 2-{steps}" if steps > 1 else "its one step"
     log(f"[{tag}] {arch} null B {B} x S {S}: median step {med:.3f} ms over "
-        f"steps 2-{steps} -> {B * S / med * 1e3:.1f} tok/s; model_flops "
+        f"{over} -> {B * S / med * 1e3:.1f} tok/s; model_flops "
         f"6·N·B·S {flops / 1e12:.3f} TFLOP = "
         f"{flops / (med * 1e-3) / peak:.2%} of the bf16 dense peak; peak "
         f"allocated {_gib(run['peak'])} ({run['peak']} bytes); "
@@ -3664,16 +3889,16 @@ def train_recurrent_arch(torch, arch, launches: dict) -> None:
         t0 = time.perf_counter()
         state = ck._unflatten(snap["template"], snap.pop("flat"))
         t_back = time.perf_counter() - t0
-        loss2 = _forward_loss(torch, model, plans["null"], state["params"],
-                              batch_at(data, 2, dev))
-        log(f"[{tag}] {arch} resume: the state after step 1 through the "
+        loss1 = _forward_loss(torch, model, plans["null"], state["params"],
+                              batch_at(data, 1, dev))
+        log(f"[{tag}] {arch} resume: the state after step 0 through the "
             f"checkpoint format in host memory (bf16 params stored as f32, "
             f"f32 moments; {snap['s']:.1f} s to the host, {t_back:.1f} s "
-            f"back), then step 2's forward: loss {loss2!r} against "
-            f"{run['loss'][2]!r} uninterrupted; AdamW step "
+            f"back), then step 1's forward: loss {loss1!r} against "
+            f"{run['loss'][1]!r} uninterrupted; AdamW step "
             f"{state['opt']['step'].item()}")
-        check(loss2 == run["loss"][2] and state["opt"]["step"].item() == 2,
-              f"{arch}: the resumed step 2 differs from the uninterrupted")
+        check(loss1 == run["loss"][1] and state["opt"]["step"].item() == 1,
+              f"{arch}: the resumed step 1 differs from the uninterrupted")
         del state
         _free(torch)
 
@@ -3852,6 +4077,10 @@ def main() -> int:
         pa.build()
         tp_phase(torch)
         return 0
+    if sys.argv[1:] == ["--dryrun"]:
+        log(f"[card] {card_line()}")
+        sharded_phase(torch)
+        return 0
     if sys.argv[1:] == ["--train-recurrent"]:
         from repro_torch.kernels import cuda_build
         from repro_torch.kernels import linear_scan as ls
@@ -3923,6 +4152,7 @@ def main() -> int:
     by_rank = tp_phase(torch)
     record["launches_tp"] = sum(by_rank)
     record["launches_tp_by_rank"] = by_rank
+    sharded_phase(torch)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -17,20 +17,28 @@ card.
     views ``expand``, ``slice`` and ``select`` count so here (moving no
     bytes), and so does the broadcast of each smaller tensor operand of a
     pointwise op (:data:`_MOVES`, :func:`_broadcasts`).  Other view and
-    metadata ops are free, as ``parameter``/``bitcast``/``tuple`` are in
-    the HLO count.  A random draw counts :data:`RANDOM_FLOPS` an element:
+    metadata ops are free, ``_unsafe_view`` among them (a reshape whose
+    schema lacks the alias mark), as ``parameter``/``bitcast``/``tuple``
+    are in the HLO count.  A random draw counts :data:`RANDOM_FLOPS` an element:
     the HLO count of the JAX package's threefry and sampler.
   * bytes — operand bytes plus output bytes per op.  In-place slice
     writes (``index_put_``, ``copy_``, ``scatter``, ``index_copy``) count
     twice the update, not the buffer; gathers of a slice (``index``,
-    ``index_select``, ``gather``, ``embedding``) twice the output — the
-    dynamic-update-slice and dynamic-slice rules of the HLO count.
+    ``index_select``, ``gather``, ``embedding``) twice the output, and
+    one flop an element of it — the dynamic-update-slice and
+    dynamic-slice rules of the HLO count.
   * ops — one per counted op.
-  * collectives — a tensor-parallel step's ``all_reduce`` notes itself
-    (:func:`note_collective`) with the JAX package's ring-cost rule: its
-    bytes in and out, the shard bytes, and the bytes through the busiest
-    link of a ring of n ranks, 2·(n-1)/n of the shard; the census counts
-    it by kind.
+  * collectives — each collective of :mod:`repro_torch.distributed.comm`
+    notes itself (:func:`note_collective`) with the JAX package's
+    ring-cost rules (:func:`collective_cost`): its bytes in and out, the
+    shard bytes, and the bytes through the busiest link of a ring of n
+    ranks; the census counts it by kind, and :attr:`RegionCounters.
+    collectives` keeps each one (kind, bytes, shape, region, group size).
+  * live bytes — the arguments, plus every output of a non-view op from
+    its creation until the last tensor that shares its storage is freed
+    (a tensor autograd saves for the backward stays live): their peak is
+    :attr:`RegionCounters.peak_bytes`, the meta-device counterpart of
+    XLA's argument plus temp sizes.
   * The hand-written kernels are ``ctypes`` calls on ``data_ptr()``s,
     invisible to a dispatch mode.  Their wrappers, handed meta tensors,
     return an empty output and note their work from
@@ -115,6 +123,10 @@ class RegionCounters:
     collective_census: Dict[str, int]
     xla_flops: float = 0.0      # cost_analysis cross-check (scan bodies 1x)
     xla_bytes: float = 0.0
+    argument_bytes: int = 0     # the tensor arguments' bytes
+    output_bytes: int = 0       # the returned tensors' bytes
+    peak_bytes: int = 0         # peak of the arguments + live op outputs
+    collectives: list = dataclasses.field(default_factory=list)
 
     def top_regions(self, key: str = "flops", n: int = 10):
         items = [(r, getattr(c, key)) for r, c in self.regions.items() if r]
@@ -141,9 +153,15 @@ _SLICE_WRITES = {"index_put_": 2, "_index_put_impl_": 2, "copy_": 1,
 #: gathers of a slice: bytes = 2 x the output
 _SLICE_READS = {"index", "index_select", "gather", "embedding"}
 
-#: factory ops that allocate without writing
+#: factory ops that allocate without writing, and ``_unsafe_view``: a
+#: reshape of a fresh result (``matmul`` of a 3-D input emits ``mm`` and
+#: then this) whose schema carries no alias annotation, though its
+#: output shares its input's storage — free, as a ``bitcast`` in HLO
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
-         "new_empty_strided"}
+         "new_empty_strided", "_unsafe_view"}
+#: ops whose output shares an input's storage without an alias
+#: annotation in the schema
+_ALIASES = {"_unsafe_view"}
 
 #: views that the HLO count takes as data movement (``broadcast``,
 #: ``slice``): one flop an element, no bytes, when the view has more or
@@ -217,6 +235,7 @@ def op_counters(func, args, kwargs, out) -> Optional[Counters]:
             iter(kwargs.values()), None)
         c.bytes = 2.0 * _nbytes(upd)
     elif name in _SLICE_READS:
+        c.flops = float(_numel(out))
         c.bytes = 2.0 * _nbytes(out)
     else:
         c.flops = float(_numel(out) * RANDOM_FLOPS.get(name, 1)
@@ -225,19 +244,60 @@ def op_counters(func, args, kwargs, out) -> Optional[Counters]:
     return c
 
 
+class _Alloc:
+    """One op output's storage while any tensor sharing it lives: the
+    tensors carry it as an attribute, and its last reference going frees
+    its bytes from the count."""
+    __slots__ = ("mode", "nbytes")
+
+    def __init__(self, mode: "CountingMode", nbytes: int):
+        self.mode, self.nbytes = mode, nbytes
+        mode.live += nbytes
+        mode.peak_live = max(mode.peak_live, mode.live)
+
+    def __del__(self):
+        self.mode.live -= self.nbytes
+
+
+_ALLOC = "_counted_alloc"
+
+
 class CountingMode(TorchDispatchMode):
     """Attributes each dispatched aten op's counters to the region path it
-    runs under."""
+    runs under, and tracks the live bytes of the op outputs."""
 
     def __init__(self):
         super().__init__()
         self.total = Counters()
         self.regions: Dict[str, Counters] = defaultdict(Counters)
         self.census: Dict[str, int] = defaultdict(int)
+        self.collectives: list = []
+        self.live = 0
+        self.peak_live = 0
 
     def note(self, c: Counters) -> None:
         self.total.add(c)
         self.regions[current_region()].add(c)
+
+    def track(self, func, args, kwargs, out) -> None:
+        """Live bytes: a view's outputs share its input's allocation; a new
+        tensor among another op's outputs starts one of its own (an
+        in-place op returns its input, which is not new)."""
+        if func.namespace != "aten":
+            return
+        name = func._schema.name.split("::")[-1]
+        if _is_view(func) or name in _ALIASES:
+            base = next((getattr(t, _ALLOC, None)
+                         for t in _tensors((args, kwargs))), None)
+            for t in _tensors(out):
+                if base is not None and getattr(t, _ALLOC, None) is None:
+                    setattr(t, _ALLOC, base)
+            return
+        inputs = {id(t) for t in _tensors((args, kwargs))}
+        for t in _tensors(out):
+            if id(t) not in inputs and getattr(t, _ALLOC, None) is None:
+                setattr(t, _ALLOC, _Alloc(
+                    self, t.untyped_storage().nbytes()))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -245,6 +305,7 @@ class CountingMode(TorchDispatchMode):
         c = op_counters(func, args, kwargs, out)
         if c is not None:
             self.note(c)
+        self.track(func, args, kwargs, out)
         return out
 
 
@@ -293,26 +354,49 @@ def note_work(nbytes: float, ops: float) -> None:
                                   ops=1))
 
 
+def _out_bytes(kind: str, nbytes: float, n: int) -> float:
+    """A rank's output bytes of a collective with ``nbytes`` of input."""
+    if kind == "all-gather":
+        return nbytes * n
+    if kind == "reduce-scatter":
+        return nbytes / n
+    return nbytes
+
+
 def collective_cost(kind: str, nbytes: float, n: int) -> tuple:
     """(shard bytes, ring link bytes) of one collective over ``n`` ranks
-    whose input is ``nbytes`` a rank: the JAX package's ring-cost rule.
-    The port's steps issue all-reduces only."""
-    if kind != "all-reduce":
-        raise ValueError(f"no cost rule for {kind!r}")
+    whose input is ``nbytes`` a rank: the JAX package's ring-cost rules
+    (``_collective_cost``).  An all-reduce's shard is its input and its
+    busiest link carries 2·(n-1)/n of it; an all-gather's shard is its
+    input and the link (n-1) of it; a reduce-scatter's shard is its
+    output and the link (n-1) of that."""
     n = max(n, 1)
-    return nbytes, 2.0 * nbytes * (n - 1) / n
+    if kind == "all-reduce":
+        return nbytes, 2.0 * nbytes * (n - 1) / n
+    if kind == "all-gather":
+        return nbytes, nbytes * (n - 1)
+    if kind == "reduce-scatter":
+        out = nbytes / n
+        return out, out * (n - 1)
+    raise ValueError(f"no cost rule for {kind!r}")
 
 
-def note_collective(kind: str, nbytes: float, n: int) -> None:
+def note_collective(kind: str, nbytes: float, n: int,
+                    shape: tuple = ()) -> None:
     """Note one collective of ``kind`` over ``n`` ranks with ``nbytes`` of
-    input a rank (its output is as large) into the counting region;
-    nothing when no count is running."""
+    input a rank (an input of ``shape``) into the counting region, and
+    keep it in the count's list of collectives; nothing when no count is
+    running."""
     if _active:
         shard, link = collective_cost(kind, float(nbytes), n)
         mode = _active[-1]
-        mode.note(Counters(bytes=2.0 * nbytes, collective_bytes=shard,
-                           link_bytes=link, collective_ops=1, ops=1))
+        mode.note(Counters(bytes=nbytes + _out_bytes(kind, nbytes, n),
+                           collective_bytes=shard, link_bytes=link,
+                           collective_ops=1, ops=1))
         mode.census[kind] += 1
+        mode.collectives.append({
+            "kind": kind, "link_bytes": link, "shard_bytes": shard,
+            "shape": list(shape), "region": current_region(), "group": n})
 
 
 def to_meta(obj):
@@ -341,8 +425,14 @@ def collect(fn: Callable, *args: Any, **kwargs: Any) -> RegionCounters:
     _active.append(mode)
     try:
         with torch.no_grad(), BackwardRegions(), mode:
-            fn(*margs, **mkwargs)
+            out_bytes = _nbytes(fn(*margs, **mkwargs))
     finally:
         _active.pop()
+    arg_bytes = _nbytes((margs, mkwargs))
     return RegionCounters(total=mode.total, regions=dict(mode.regions),
-                          collective_census=dict(mode.census))
+                          collective_census=dict(mode.census),
+                          argument_bytes=arg_bytes,
+                          output_bytes=out_bytes,
+                          peak_bytes=arg_bytes + mode.peak_live,
+                          collectives=mode.collectives)
+

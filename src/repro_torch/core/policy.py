@@ -12,8 +12,9 @@ dim the mapped mesh-axis size does not divide, so every spec the port
 emits is legal by construction.  Activation constraints have no eager
 counterpart except where a partial sum meets them: there
 :meth:`RegionPlan.constrain` all-reduces over the ``model`` axis (the
-collective GSPMD inserts in the JAX package) and is otherwise the
-identity.
+collective GSPMD inserts in the JAX package; under autograd through
+:func:`repro_torch.distributed.comm.reduce_from_model`) and is otherwise
+the identity.
 """
 from __future__ import annotations
 
@@ -189,7 +190,7 @@ class RegionPlan:
         if not partial or self.model_size() == 1:
             return x
         from repro_torch.distributed import comm
-        return comm.all_reduce(x, self.mesh)
+        return comm.reduce_from_model(x, self.mesh)
 
     def model_size(self) -> int:
         """Width of the mesh's ``model`` (tensor-parallel) axis; 1 without
@@ -252,3 +253,11 @@ def default_plan(mesh=None, kind: str = "train") -> RegionPlan:
         rules["heads"] = None
         rules["kv_heads"] = None
     return RegionPlan(mesh=mesh, rules=rules, region_configs=regions)
+
+
+def default_microbatch(kind: str, global_batch: int, data_shards: int) -> int:
+    """Baseline grad-accumulation factor: keep ~2 sequences per device."""
+    if kind != "train":
+        return 1
+    per_dev = max(global_batch // max(data_shards, 1), 1)
+    return max(per_dev // 2, 1)

@@ -1,10 +1,21 @@
-"""The collectives of a tensor-parallel step, over the ``model`` axis of
-a plan's mesh: only ``all_reduce`` and ``broadcast``, which both the NCCL
-and the gloo backend take on CUDA tensors.
+"""The collectives of a sharded step, over one named axis of a plan's mesh.
+
+* ``all_reduce`` (sum or max) and ``broadcast`` — what a tensor-parallel
+  serve step issues, in place, under ``no_grad``;
+* ``reduce_from_model`` / ``copy_to_model`` — the autograd-aware pair of
+  a tensor-parallel training step: the row-parallel output's all-reduce
+  (identity in the backward), and the identity at the replicated input
+  of a column-parallel product (an all-reduce of its gradient);
+* ``reduce_scatter`` / ``all_gather`` along one dim over the ``data``
+  axis — ZeRO-1's gradient shard and the updated parameter's regather.
+  Under NCCL they are ``reduce_scatter_tensor`` / ``all_gather_into_tensor``
+  on the dim moved to the front; gloo has no reduce-scatter, so there it
+  is an all-reduce and a ``narrow``.
 
 On the meta device (:func:`repro_torch.core.counters.collect`) a
-collective runs nothing: it notes its bytes into the count, with the JAX
-package's ring-cost rule, and returns its input.
+collective runs nothing: it notes what the NCCL path issues into the
+count, with the JAX package's ring-cost rules, and returns a tensor of
+its output's shape.
 """
 from __future__ import annotations
 
@@ -13,27 +24,153 @@ import torch
 from repro_torch.core.policy import mesh_shape
 
 
-def model_index(mesh) -> int:
-    """This rank's index on the mesh's ``model`` axis (0 on a stand-in
-    mesh without coordinates)."""
+def axis_size(mesh, axis: str) -> int:
+    """Ranks on the mesh's ``axis`` (1 without a mesh or that axis)."""
     if mesh is None:
+        return 1
+    return mesh_shape(mesh).get(axis, 1)
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's index on the mesh's ``axis`` (0 without a mesh, on a
+    stand-in mesh without coordinates, or on an axis it lacks)."""
+    if mesh is None or axis not in mesh_shape(mesh):
         return 0
     if getattr(mesh, "mesh_dim_names", None) is not None:
-        return mesh.get_local_rank("model")
-    return getattr(mesh, "coords", {}).get("model", 0)
+        return mesh.get_local_rank(axis)
+    return getattr(mesh, "coords", {}).get(axis, 0)
 
 
-def all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum ``x`` over the mesh's ``model`` axis, in place; returns it."""
-    n = mesh_shape(mesh).get("model", 1)
+def model_index(mesh) -> int:
+    """This rank's index on the mesh's ``model`` axis."""
+    return axis_index(mesh, "model")
+
+
+def _note(kind: str, x: torch.Tensor, n: int) -> None:
+    from repro_torch.core import counters
+    counters.note_collective(kind, x.numel() * x.element_size(), n,
+                             tuple(x.shape))
+
+
+def all_reduce(x: torch.Tensor, mesh, axis: str = "model",
+               op: str = "sum") -> torch.Tensor:
+    """Reduce ``x`` (``op``: ``sum`` or ``max``) over the mesh's ``axis``,
+    in place; returns it."""
+    n = axis_size(mesh, axis)
     if x.device.type == "meta":
-        from repro_torch.core import counters
-        counters.note_collective("all-reduce",
-                                 x.numel() * x.element_size(), n)
+        _note("all-reduce", x, n)
+        return x
+    if n == 1:
         return x
     import torch.distributed as dist
-    dist.all_reduce(x, group=mesh.get_group("model"))
+    if op == "sum":
+        dist.all_reduce(x, group=mesh.get_group(axis))
+    else:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(axis))
     return x
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mark_dirty(x)
+        return all_reduce(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.mesh), None
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The row-parallel output: ``x``, this rank's partial sum, summed
+    over the ``model`` axis (in place); the gradient passes through
+    unchanged.  Outside autograd it is :func:`all_reduce`."""
+    if not _differentiable(x):
+        return all_reduce(x, mesh)
+    if x._is_view():
+        x = x.clone()
+    return _ReduceFromModel.apply(x, mesh)
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The replicated input of a column-parallel product: ``x`` itself,
+    whose gradient — each rank's part from its columns — is summed over
+    the ``model`` axis in the backward.  The identity outside autograd or
+    on a mesh whose ``model`` axis is 1."""
+    if not _differentiable(x) or axis_size(mesh, "model") == 1:
+        return x
+    return _CopyToModel.apply(x, mesh)
+
+
+def _backend(mesh, axis: str) -> str:
+    import torch.distributed as dist
+    return dist.get_backend(mesh.get_group(axis))
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, mesh,
+                   axis: str = "data") -> torch.Tensor:
+    """``x`` summed over the mesh's ``axis``, of which this rank keeps
+    block ``axis_index`` along ``dim`` (``x.shape[dim]`` divisible by the
+    axis size)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    part = x.shape[dim] // n
+    if x.device.type == "meta":
+        _note("reduce-scatter", x, n)
+        shape = list(x.shape)
+        shape[dim] = part
+        return x.new_empty(shape)
+    import torch.distributed as dist
+    group = mesh.get_group(axis)
+    i = axis_index(mesh, axis)
+    if _backend(mesh, axis) != "nccl":
+        full = all_reduce(x.contiguous(), mesh, axis)
+        return full.narrow(dim, i * part, part)
+    inp = x.movedim(dim, 0).contiguous()
+    out = inp.new_empty((part,) + inp.shape[1:])
+    dist.reduce_scatter_tensor(out, inp, group=group)
+    return out.movedim(0, dim)
+
+
+def all_gather(x: torch.Tensor, dim: int, mesh,
+               axis: str = "data") -> torch.Tensor:
+    """Every rank's ``x`` of the mesh's ``axis``, concatenated along
+    ``dim`` in axis order."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    if x.device.type == "meta":
+        _note("all-gather", x, n)
+        shape = list(x.shape)
+        shape[dim] *= n
+        return x.new_empty(shape)
+    import torch.distributed as dist
+    group = mesh.get_group(axis)
+    inp = x.movedim(dim, 0).contiguous()
+    if _backend(mesh, axis) != "nccl":
+        parts = [torch.empty_like(inp) for _ in range(n)]
+        dist.all_gather(parts, inp, group=group)
+        out = torch.cat(parts, 0)
+    else:
+        out = inp.new_empty((n * inp.shape[0],) + inp.shape[1:])
+        dist.all_gather_into_tensor(out, inp, group=group)
+    return out.movedim(0, dim)
 
 
 def replicate_vocab(x: torch.Tensor, vocab: int, mesh) -> torch.Tensor:

@@ -173,3 +173,49 @@ def shard_leaf(t: torch.Tensor, spec: tuple, mesh,
     """One rank's piece of the full leaf ``t`` (:func:`leaf_block`),
     contiguous.  A leaf that ``spec`` leaves whole comes back as it is."""
     return leaf_block(t, spec, mesh, coords).contiguous()
+
+
+def spec_axes(spec: tuple) -> tuple:
+    """The mesh axes a spec splits its leaf over, in order."""
+    out = []
+    for e in spec:
+        if e is not None:
+            out.extend((e,) if isinstance(e, str) else e)
+    return tuple(out)
+
+
+def zero1_dim(param_spec: tuple, opt_spec: tuple) -> Optional[int]:
+    """The dim ZeRO-1 split a leaf's moments on over ``data``
+    (:func:`_zero1`), or None where the moments follow the param."""
+    for i, e in enumerate(opt_spec):
+        p = param_spec[i] if i < len(param_spec) else None
+        if e == "data" and p is None:
+            return i
+    return None
+
+
+def mesh_coords(mesh) -> dict:
+    """``{axis name: this rank's index}`` on ``mesh``."""
+    if mesh is None:
+        return {}
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        return dict(getattr(mesh, "coords", {}))
+    return {a: mesh.get_local_rank(a) for a in names}
+
+
+#: the ROADMAP queue 1 item that ports each family's sharded step (the
+#: dense family's is ported)
+SHARDED_FAMILY_ITEMS = {"moe": 18, "vlm": 19, "ssm": 20, "hybrid": 20,
+                        "encdec": 21}
+
+
+def require_sharded_family(cfg) -> None:
+    """Raise for a family whose step over a mesh is not ported: only the
+    dense family's layers split their heads, ff, vocab and cache sequence
+    over ranks."""
+    if cfg.family != "dense":
+        item = SHARDED_FAMILY_ITEMS.get(cfg.family, 18)
+        raise NotImplementedError(
+            f"the {cfg.family} family's sharded step is not ported "
+            f"(ROADMAP queue 1 item {item})")

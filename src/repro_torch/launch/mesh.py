@@ -73,3 +73,51 @@ def rank_device(device: torch.device, rank: int, backend: str
     if device.type == "cuda" and backend == "nccl":
         return torch.device("cuda", rank)
     return device
+
+
+def start_ranks(world: int, target, args: tuple, timeout_s: float = 300):
+    """This process as rank 0 of ``world`` ranks: ranks 1.. are spawned
+    processes (the ``spawn`` start method) running ``target(rank, world,
+    port, *args)``, which meet this process through a TCP store on a free
+    port (:func:`worker_store`).  Returns (store, processes) once every
+    worker has reached the store; a worker that died on the way fails the
+    start at once, and the rest are terminated."""
+    import datetime
+    import time
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    store = dist.TCPStore("localhost", 0, world, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=timeout_s))
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, daemon=True,
+                         args=(r, world, store.port) + tuple(args))
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    keys = [f"ready{r}" for r in range(1, world)]
+    t0 = time.monotonic()
+    while not store.check(keys):
+        dead = [(r + 1, p.exitcode) for r, p in enumerate(procs)
+                if not p.is_alive()]
+        if dead or time.monotonic() - t0 > timeout_s:
+            for p in procs:
+                p.terminate()
+            raise RuntimeError(
+                f"worker ranks did not start (rank, exit code): "
+                f"{dead or 'timed out'}")
+        time.sleep(0.05)
+    return store, procs
+
+
+def worker_store(rank: int, world: int, port: int, timeout_s: float = 300):
+    """A spawned rank's side of :func:`start_ranks`: the store, with this
+    rank marked ready."""
+    import datetime
+
+    import torch.distributed as dist
+    store = dist.TCPStore("localhost", port, world, is_master=False,
+                          timeout=datetime.timedelta(seconds=timeout_s))
+    store.set(f"ready{rank}", "1")
+    return store

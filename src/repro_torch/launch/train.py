@@ -3,10 +3,18 @@
 Reduced configs by default (``--full`` for the published widths), on
 ``--device`` (default ``cuda``; ``--device cpu`` runs on the CPU, nothing
 else does).  Handles checkpoint/restart (``--resume``), straggler
-telemetry and plan files from the autotuner.  The port trains on one
-device, and there — as the JAX launcher does on one device — any plan,
-a ``--plan`` file included, is replaced by ``null_plan()``: the launcher
-never remats.  Every family trains: the VLM and the encoder-decoder on
+telemetry and plan files from the autotuner.  On one rank — as the JAX
+launcher does on one device — any plan, a ``--plan`` file included, is
+replaced by ``null_plan()``: the launcher never remats.
+
+``--ranks N`` trains over N ranks (the dense family): this process is
+rank 0 and spawns the others, each runs the same loop on its blocks of a
+``(data, model)`` mesh (``--data``/``--model``; the model degree first,
+the data degree in what is left, as ``make_host_mesh`` resolves them)
+under ``default_plan(mesh, "train")`` or the ``--plan`` file, with
+ZeRO-1 moments; the backend follows ``launch.mesh.backend_for`` (gloo
+where ranks share a device).  Rank 0 prints what the one-rank launcher
+prints.  Checkpoints are written and read on one rank only.  Every family trains: the VLM and the encoder-decoder on
 zero vision embeddings and zero frames (the stubbed frontends, as the
 JAX launcher feeds them, in the params' dtype), rwkv6 and zamba2 through
 the scan kernels' gradient (:func:`repro_torch.kernels.ops.wkv` /
@@ -18,6 +26,10 @@ the scan kernels' gradient (:func:`repro_torch.kernels.ops.wkv` /
   # the CPU, reduced, f32
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --dtype float32 --steps 12 --batch 2 --seq 32
+
+  # two ranks on the CPU: data 2 with ZeRO-1, or --model 2
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --dtype float32 --ranks 2 --data 2 --steps 4 --batch 4 --seq 32
 
 The host reads the device once per logged step (the loss), and at a
 checkpoint; other steps are only enqueued, so the watchdog times the
@@ -32,7 +44,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config
-from repro_torch.core.policy import RegionPlan, null_plan
+from repro_torch.core.policy import RegionPlan, default_plan, null_plan
 from repro_torch.data.pipeline import DataConfig, Prefetcher, iterate
 from repro_torch.models import model as model_mod
 from repro_torch.optim import adamw
@@ -41,7 +53,7 @@ from repro_torch.train import trainer
 from repro_torch.train.elastic import StepWatchdog
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--reduced", action="store_true", default=True)
@@ -63,23 +75,162 @@ def main(argv=None):
                     help="torch device to train on (cuda unless asked)")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16", help="param dtype")
-    args = ap.parse_args(argv)
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="ranks to train over (this process and N-1 "
+                         "spawned ones)")
+    ap.add_argument("--data", type=int, default=0,
+                    help="data-parallel degree (default: the ranks the "
+                         "model degree leaves)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel degree")
+    ap.add_argument("--stats-out", default="",
+                    help="write every rank's step losses, grad norms, step "
+                         "ms, moment bytes and device memory as JSON")
+    return ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.ranks <= 1:
+        return train_loop(args, resolve_device(args.device))
+    if args.ckpt_dir or args.resume:
+        raise NotImplementedError(
+            "checkpoints are written and read on one rank only")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import backend_for, rank_device, start_ranks
+    device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    backend = backend_for(device, args.ranks)
+    store, procs = start_ranks(args.ranks, _rank_main,
+                               (backend, str(device), argv))
+    dist.init_process_group(backend, store=store, rank=0,
+                            world_size=args.ranks)
+    ok = False
+    try:
+        loss = train_loop(args, rank_device(device, 0, backend))
+        ok = True
+    finally:
+        dist.destroy_process_group()
+        for p in procs:
+            if ok:
+                p.join(timeout=300)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    bad = [(r + 1, p.exitcode) for r, p in enumerate(procs)
+           if p.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"training ranks failed (rank, exit code): {bad}")
+    return loss
+
+
+def _rank_main(rank: int, world: int, port: int, backend: str, device: str,
+               argv) -> None:
+    """A spawned rank: join the group, run the loop, leave."""
+    import os
+    import sys
+    import traceback
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import rank_device, worker_store
+    try:
+        dev = rank_device(torch.device(device), rank, backend)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        store = worker_store(rank, world, port)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world)
+        train_loop(parse_args(argv), dev)
+        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def _placed(model, args, dev, dtype):
+    """(params, opt_state, plan, step keywords, local batch rows) of this
+    rank: on one rank the whole state and ``null_plan()``; over ranks its
+    blocks (``elastic.reshard`` of the seeded init) under the train plan,
+    the moments at their ZeRO-1 blocks."""
+    if args.ranks <= 1:
+        if args.plan:   # read, as the JAX launcher does, then replaced:
+            with open(args.plan) as f:
+                RegionPlan.from_json(f.read())
+        params = model.init(args.seed, dtype=dtype, device=dev)
+        return (params, adamw.init_state(params), null_plan(), {},
+                lambda b: b)
+    from repro_torch.distributed import sharding as shard_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import elastic
+    mesh = make_host_mesh(data=args.data or args.ranks // args.model,
+                          model=args.model)
+    if args.plan:
+        with open(args.plan) as f:
+            plan = RegionPlan.from_json(f.read(), mesh=mesh)
+    else:
+        plan = default_plan(mesh, "train")
+    shard_mod.require_sharded_family(model.cfg)
+    p_sh = shard_mod.param_shardings(model, plan)
+    o_sh = shard_mod.opt_state_shardings(model, plan)
+    full = model.init(args.seed, dtype=dtype, device=dev)
+    params = elastic.reshard(full, model.logical_axes(), plan, device=dev)
+    del full
+    zeros = lambda p, sp: torch.zeros(  # noqa: E731
+        shard_mod.local_shape(tuple(p.shape), sp, mesh),
+        dtype=torch.float32, device=dev)
+    abstract = model.abstract_params()
+    opt_state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                 "mu": _map2(zeros, abstract, o_sh["mu"]),
+                 "nu": _map2(zeros, abstract, o_sh["nu"])}
+    coords = shard_mod.mesh_coords(mesh)
+    b_specs = shard_mod.batch_shardings(
+        plan, {"tokens": (args.batch, args.seq),
+               "labels": (args.batch, args.seq)})
+
+    def rows(batch):
+        return {k: shard_mod.shard_leaf(v, b_specs[k], mesh, coords)
+                for k, v in batch.items()}
+    kw = dict(grad_shardings=p_sh, opt_shardings=o_sh["mu"])
+    return params, opt_state, plan, kw, rows
+
+
+def _map2(fn, a, b):
+    if isinstance(a, dict):
+        return {k: _map2(fn, a[k], b[k]) for k in sorted(a)}
+    return fn(a, b)
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.models import layers as L
+    return sum(t.numel() * t.element_size() for t in L.tree_leaves(tree))
+
+
+def train_loop(args, dev):
+    """The training loop of this rank (every rank runs it, in step)."""
+    import torch.distributed as dist
+    multi = args.ranks > 1
+    rank = dist.get_rank() if multi else 0
+    cuda = dev.type == "cuda"
+    mem0 = torch.cuda.memory_allocated(dev) if cuda else 0
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = model_mod.build(cfg)
-
-    if args.plan:   # read, as the JAX launcher does, then replaced:
-        with open(args.plan) as f:
-            RegionPlan.from_json(f.read())
-    plan = null_plan()   # on one device any plan is the null plan
-
-    params = model.init(args.seed, dtype=getattr(torch, args.dtype),
-                        device=dev)
-    opt_state = adamw.init_state(params)
+    dtype = getattr(torch, args.dtype)
+    params, opt_state, plan, kw, rows = _placed(model, args, dev, dtype)
     start_step = 0
+    stats = {"rank": rank,
+             "moment_bytes": _nbytes({"mu": opt_state["mu"],
+                                      "nu": opt_state["nu"]}),
+             "param_bytes": _nbytes(params),
+             "loss": [], "grad_norm": [], "step_ms": []}
+    if cuda:
+        torch.cuda.synchronize(dev)
+        stats["allocated_after_placement"] = (
+            torch.cuda.memory_allocated(dev) - mem0)
+        torch.cuda.reset_peak_memory_stats(dev)
 
     if args.resume and args.ckpt_dir:
         found = ckpt_mod.latest_valid(args.ckpt_dir)
@@ -92,17 +243,16 @@ def main(argv=None):
     opt_cfg = adamw.AdamWConfig(lr=args.lr)
     step_fn = trainer.make_train_step(
         model, plan, opt_cfg=opt_cfg, unroll=False,
-        microbatch=args.microbatch, schedule_total=args.steps)
+        microbatch=args.microbatch, schedule_total=args.steps, **kw)
 
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch, seed=args.seed)
-    data = Prefetcher(iterate(data_cfg, start_step, device="cpu"),
+    data = Prefetcher(map(rows, iterate(data_cfg, start_step, device="cpu")),
                       device=dev)
     watchdog = StepWatchdog()
 
     t_start = time.time()
     metrics = None
-    dtype = getattr(torch, args.dtype)
     for step in range(start_step, args.steps):
         batch = next(data)
         if cfg.family == "encdec":
@@ -113,11 +263,18 @@ def main(argv=None):
             batch = dict(batch, vision_embeds=torch.zeros(
                 (args.batch, 8, cfg.d_model), dtype=dtype, device=dev))
         watchdog.start()
+        t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if args.stats_out:
+            loss_v = float(metrics["loss"])   # waits for the step
+            stats["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            stats["loss"].append(loss_v)
+            stats["grad_norm"].append(float(metrics["grad_norm"]))
         straggler = watchdog.stop(step)
-        if straggler:
+        if straggler and rank == 0:
             print(f"[watchdog] step {step} flagged as straggler")
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if rank == 0 and (step % args.log_every == 0
+                          or step == args.steps - 1):
             print(f"step {step:5d} loss {metrics['loss'].item():.4f} "
                   f"gnorm {metrics['grad_norm'].item():.3f} "
                   f"lr {metrics['lr'].item():.2e}")
@@ -130,9 +287,29 @@ def main(argv=None):
             raise SystemExit(42)
     loss = float(metrics["loss"]) if metrics else float("nan")
     dt = time.time() - t_start
-    tok = (args.steps - start_step) * args.batch * args.seq
-    print(f"done: {dt:.1f}s, {tok/dt:.0f} tok/s, final loss {loss:.4f}")
+    if cuda:
+        stats["peak_allocated"] = torch.cuda.max_memory_allocated(dev) - mem0
+    if args.stats_out:
+        _write_stats(args.stats_out, stats, multi)
+    if rank == 0:
+        tok = (args.steps - start_step) * args.batch * args.seq
+        print(f"done: {dt:.1f}s, {tok/dt:.0f} tok/s, final loss {loss:.4f}")
     return loss
+
+
+def _write_stats(path: str, stats: dict, multi: bool) -> None:
+    """Rank 0 writes every rank's stats (gathered over the group)."""
+    import json
+    if multi:
+        import torch.distributed as dist
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, stats)
+        if dist.get_rank() != 0:
+            return
+    else:
+        out = [stats]
+    with open(path, "w") as f:
+        json.dump({"ranks": out}, f)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.policy import RegionPlan
 from repro_torch.core.regions import region
+from repro_torch.distributed import comm
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Spec, TensorSpec, apply_rope
 
@@ -50,6 +51,46 @@ def _heads(cfg, p) -> tuple:
         raise NotImplementedError(
             "q heads and kv heads split over the model axis differently")
     return h, kvh, h // kvh
+
+
+def _kv_block(cfg, p, plan: RegionPlan):
+    """(first, end) of the kv heads this rank's q heads read, where the
+    q heads are split over the ``model`` axis and the kv heads are not (a
+    kv-head count the axis does not divide: the JAX package's GSPMD
+    replicates them there); None otherwise.  Rank i holds q heads
+    ``[i*h, (i+1)*h)``, and q head j reads kv head ``j // G``."""
+    h, kvh = p["wq"].shape[-2], p["wk"].shape[-2]
+    if h == cfg.n_heads or kvh != cfg.n_kv_heads:
+        return None
+    g = cfg.n_heads // cfg.n_kv_heads
+    start = comm.model_index(plan.mesh) * h
+    k0, k1 = start // g, (start + h - 1) // g + 1
+    if h % g and g % h:
+        raise NotImplementedError(
+            f"{h} q heads a rank do not tile GQA groups of {g}")
+    return k0, k1
+
+
+def _shard_qkv_params(cfg, p, plan: RegionPlan):
+    """The attention params as a rank of a heads-split step reads them,
+    differentiably: the kv projections of a replicated-kv rank narrowed to
+    :func:`_kv_block`, and every replicated leaf the rank's heads read
+    (those projections, the qk-norm scales) behind
+    :func:`repro_torch.distributed.comm.copy_to_model`, whose backward sums
+    the ranks' parts of its gradient."""
+    if p["wq"].shape[-2] == cfg.n_heads:
+        return p
+    mesh = plan.mesh
+    p = dict(p)
+    blk = _kv_block(cfg, p, plan)
+    if blk is not None:
+        for name in ("wk", "wv"):
+            p[name] = comm.copy_to_model(p[name], mesh).narrow(
+                -2, blk[0], blk[1] - blk[0])
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = comm.copy_to_model(p[name], mesh)
+    return p
 
 
 def _finish(cfg, p, attn, plan: RegionPlan, rpath: str) -> torch.Tensor:
@@ -129,11 +170,18 @@ def apply_attention(cfg, p, x: torch.Tensor, plan: RegionPlan, *,
         causal = cfg.causal if causal is None else causal
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        if p["wq"].shape[-2] != cfg.n_heads:
+            # heads split over the model axis: the column-parallel q/k/v
+            # products' inputs, whose gradients the ranks sum
+            x = comm.copy_to_model(x, plan.mesh)
+            if kv_x is not None:
+                kv_x = comm.copy_to_model(kv_x, plan.mesh)
         if kv_x is None:
             kv_x, kv_positions = x, positions
         elif kv_positions is None:
             kv_positions = torch.arange(kv_x.shape[1], dtype=torch.int32,
                                         device=x.device)
+        p = _shard_qkv_params(cfg, p, plan)
         q, k, v = _project_qkv(cfg, p, x, kv_x, positions, kv_positions,
                                rope)
         hd = q.shape[-1]
@@ -175,19 +223,27 @@ def init_kv_cache(cfg, batch: int, max_len: int,
                                          dtype).items()}
 
 
-def _is_ring(cfg, cache) -> bool:
-    return bool(cfg.swa_window) and cache["k"].shape[1] == cfg.swa_window
-
-
-def _cache_write(cache, k_new, v_new, start) -> None:
+def _cache_write(cache, k_new, v_new, start, r0=None) -> None:
     """Write T new rows per batch row b at ``start[b]..start[b]+T-1`` of
     the cache, in place.  k_new/v_new: (B, T, KV, HD); start: (B,) long,
-    already inside [0, C - T]."""
+    already inside [0, C - T].  ``r0``: the cache holds rows
+    ``[r0, r0 + Cl)`` of a sequence split over ranks, and takes only the
+    rows it holds (the others keep their contents)."""
     B, T = k_new.shape[:2]
     rows = start[:, None] + torch.arange(T, device=start.device)[None, :]
     bidx = torch.arange(B, device=start.device)[:, None].expand(B, T)
-    cache["k"].index_put_((bidx, rows), k_new.to(cache["k"].dtype))
-    cache["v"].index_put_((bidx, rows), v_new.to(cache["v"].dtype))
+    if r0 is None:
+        cache["k"].index_put_((bidx, rows), k_new.to(cache["k"].dtype))
+        cache["v"].index_put_((bidx, rows), v_new.to(cache["v"].dtype))
+        return
+    Cl = cache["k"].shape[1]
+    local = rows - r0
+    held = ((local >= 0) & (local < Cl))[..., None, None]
+    local = local.clamp(0, Cl - 1)
+    for name, new in (("k", k_new), ("v", v_new)):
+        new = torch.where(held, new.to(cache[name].dtype),
+                          cache[name][bidx, local])
+        cache[name].index_put_((bidx, local), new)
 
 
 def _clamp_start(pos, C: int, T: int):
@@ -215,28 +271,62 @@ def apply_attention_decode(cfg, p, x, cache, pos, plan: RegionPlan,
         return _attention_decode_block(cfg, p, x, cache, pos, plan, name)
     with region(name) as rpath:
         B = x.shape[0]
-        C = cache["k"].shape[1]
-        ring = _is_ring(cfg, cache)
+        Cl = cache["k"].shape[1]
+        m, r0 = _seq_shard(plan, rpath, Cl)
+        C = Cl * m
+        ring = bool(cfg.swa_window) and C == cfg.swa_window
         positions = pos.long()[:, None]                       # (B, 1)
         q, k_new, v_new = _qkv_rope(cfg, p, x, positions)
         start = (torch.remainder(positions[:, 0], C) if ring
                  else _clamp_start(pos, C, 1))
-        _cache_write(cache, k_new, v_new, start)
-        # absolute position of each cache row
-        idx = torch.arange(C, device=x.device)[None, :]
+        _cache_write(cache, k_new, v_new, start, r0 if m > 1 else None)
+        # absolute position of each cache row (this rank's rows)
+        idx = r0 + torch.arange(Cl, device=x.device)[None, :]
         if ring:
             # rows hold positions pos-C+1..pos once full; invalid before
             k_pos = positions - torch.remainder(positions - idx, C)
         else:
-            k_pos = idx.expand(B, C)
-        valid = (k_pos <= positions) & (k_pos >= 0)            # (B, C)
+            k_pos = idx.expand(B, Cl)
+        valid = (k_pos <= positions) & (k_pos >= 0)            # (B, Cl)
         hd = q.shape[-1]
         h, kvh, g = _heads(cfg, p)
         qg = q.reshape(B, 1, kvh, g, hd)
         s = torch.einsum("bqhge,bkhe->bhgqk", qg, cache["k"]) / math.sqrt(hd)
-        probs = _masked_softmax(s, valid[:, None, None, None, :], x.dtype)
-        attn = torch.einsum("bhgqk,bkhe->bqhge", probs, cache["v"])
+        mask = valid[:, None, None, None, :]
+        if m > 1:
+            attn = _attend_seq_split(s, mask, cache["v"],
+                                     "bhgqk,bkhe->bqhge", x.dtype, plan)
+        else:
+            probs = _masked_softmax(s, mask, x.dtype)
+            attn = torch.einsum("bhgqk,bkhe->bqhge", probs, cache["v"])
         return _finish(cfg, p, attn.reshape(B, 1, h, hd), plan, rpath), cache
+
+
+def _seq_shard(plan: RegionPlan, rpath: str, rows: int) -> tuple:
+    """(shards, first row) of a slot cache's sequence: the plan's rules
+    for ``rpath`` split ``kv_seq`` over a ``model`` axis of m > 1 ranks
+    (the JAX package's default decode plan) — this rank's ``rows`` are
+    then rows ``[i*rows, (i+1)*rows)`` of the full cache — or (1, 0).  The
+    cache handed in holds a legal split: a full length the axis divides."""
+    m = plan.model_size()
+    if m == 1 or plan.rules_for(rpath).get("kv_seq") != "model":
+        return 1, 0
+    return m, comm.model_index(plan.mesh) * rows
+
+
+def _attend_seq_split(s, mask, v, eq: str, dtype, plan: RegionPlan):
+    """Attention over keys split across the ``model`` axis, from this
+    rank's scores ``s`` (keys last), its ``mask`` and its value rows:
+    the scores' max over every rank's keys (an all-reduce), each rank's
+    exp-sums summed (an all-reduce), then each rank's probabilities times
+    its value rows, summed (an all-reduce) — the log-sum-exp combine."""
+    s = s.float().masked_fill(~mask, NEG_INF)
+    top = comm.all_reduce(s.amax(-1, keepdim=True), plan.mesh, op="max")
+    e = torch.exp(s - top)
+    total = comm.all_reduce(e.sum(-1, keepdim=True), plan.mesh)
+    probs = torch.div(e, total, out=e).to(dtype)
+    return comm.all_reduce(torch.einsum(eq, probs, v).contiguous(),
+                           plan.mesh)
 
 
 def _attention_decode_block(cfg, p, x, cache, pos, plan: RegionPlan,
@@ -246,22 +336,30 @@ def _attention_decode_block(cfg, p, x, cache, pos, plan: RegionPlan,
     row through its own write).  Non-ring caches only."""
     with region(name) as rpath:
         B, T, _ = x.shape
-        C = cache["k"].shape[1]
-        if _is_ring(cfg, cache):
+        Cl = cache["k"].shape[1]
+        m, r0 = _seq_shard(plan, rpath, Cl)
+        C = Cl * m
+        if cfg.swa_window and C == cfg.swa_window:
             raise ValueError("multi-token decode unsupported on SWA ring "
                              "caches")
         positions = (pos.long()[:, None]
                      + torch.arange(T, device=x.device)[None, :])  # (B, T)
         q, k_new, v_new = _qkv_rope(cfg, p, x, positions)
-        _cache_write(cache, k_new, v_new, _clamp_start(pos, C, T))
-        k_pos = torch.arange(C, device=x.device)
-        valid = k_pos[None, None, :] <= positions[:, :, None]   # (B, T, C)
+        _cache_write(cache, k_new, v_new, _clamp_start(pos, C, T),
+                     r0 if m > 1 else None)
+        k_pos = r0 + torch.arange(Cl, device=x.device)
+        valid = k_pos[None, None, :] <= positions[:, :, None]   # (B, T, Cl)
         hd = q.shape[-1]
         h, kvh, g = _heads(cfg, p)
         qg = q.reshape(B, T, kvh, g, hd)
         s = torch.einsum("bshge,bkhe->bhsgk", qg, cache["k"]) / math.sqrt(hd)
-        probs = _masked_softmax(s, valid[:, None, :, None, :], x.dtype)
-        attn = torch.einsum("bhsgk,bkhe->bshge", probs, cache["v"])
+        mask = valid[:, None, :, None, :]
+        if m > 1:
+            attn = _attend_seq_split(s, mask, cache["v"],
+                                     "bhsgk,bkhe->bshge", x.dtype, plan)
+        else:
+            probs = _masked_softmax(s, mask, x.dtype)
+            attn = torch.einsum("bhsgk,bkhe->bshge", probs, cache["v"])
         return _finish(cfg, p, attn.reshape(B, T, h, hd), plan, rpath), cache
 
 
@@ -334,6 +432,15 @@ def _paged_gather(pages: torch.Tensor, block_table: torch.Tensor):
     return g.reshape(g.shape[:-4] + (g.shape[-4] * g.shape[-3],) + g.shape[-2:])
 
 
+def _paged_gather_heads(pages: torch.Tensor, block_tables: torch.Tensor):
+    """(P, ps, KV, HD) gathered through (B, MP) -> (KV, B, MP*ps, HD),
+    contiguous (one ``index_select`` of the pool seen heads first)."""
+    B, mp = block_tables.shape
+    g = torch.index_select(pages.permute(2, 0, 1, 3), 1,
+                           block_tables.long().reshape(-1))
+    return g.view(pages.shape[2], B, mp * pages.shape[1], pages.shape[3])
+
+
 def apply_attention_paged_decode(cfg, p, x, pages, block_tables, lengths,
                                  plan: RegionPlan, name: str = "attn"):
     """Decode a short block of S tokens for every pool slot against the
@@ -382,15 +489,23 @@ def apply_attention_paged_decode(cfg, p, x, pages, block_tables, lengths,
                                           block_k=rc.block_k)
             attn = attn.to(x.dtype)
         else:
-            k = _paged_gather(k_pages, block_tables)        # (B, T, KV, HD)
-            v = _paged_gather(v_pages, block_tables)
-            T = k.shape[1]
+            # gathered in the layout the batched products read, heads
+            # first: (KV, B, T, HD).  XLA fuses the same transpose into
+            # its gather, so neither package writes K/V twice; a gather in
+            # the pool's (B, T, KV, HD) order would make the products copy
+            # both to (B, KV, T, HD) first.
+            k = _paged_gather_heads(k_pages, block_tables)
+            v = _paged_gather_heads(v_pages, block_tables)
+            T = k.shape[2]
             # staircase: query i sees every written position through its own
             valid = (torch.arange(T, device=x.device)[None, None, :]
                      <= positions[:, :, None])              # (B, S, T)
-            s = torch.einsum("bshge,bkhe->bhsgk", qg, k) / math.sqrt(hd)
-            probs = _masked_softmax(s, valid[:, None, :, None, :], x.dtype)
-            attn = torch.einsum("bhsgk,bkhe->bshge", probs, v)
+            qh = qg.permute(2, 0, 1, 3, 4).reshape(kvh, B, S * grp, hd)
+            s = (qh @ k.transpose(-1, -2)).view(kvh, B, S, grp, T)
+            s = s / math.sqrt(hd)
+            probs = _masked_softmax(s, valid[None, :, :, None, :], x.dtype)
+            attn = (probs.view(kvh, B, S * grp, T) @ v).view(
+                kvh, B, S, grp, hd).permute(1, 2, 0, 3, 4)
         return (_finish(cfg, p, attn.reshape(B, S, h, hd), plan, rpath),
                 pages)
 

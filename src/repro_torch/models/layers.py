@@ -191,9 +191,13 @@ def mlp_spec(cfg, d_ff: Optional[int] = None) -> Any:
 def apply_mlp(cfg, p, x: torch.Tensor, plan: RegionPlan,
               name: str = "mlp", d_ff: Optional[int] = None) -> torch.Tensor:
     """``d_ff``: the full hidden width (default ``cfg.d_ff``).  On a
-    tensor-parallel shard ``p`` holds the rank's ff columns, and the down
+    tensor-parallel shard ``p`` holds the rank's ff columns: the input's
+    gradient is summed over the ranks (``copy_to_model``), and the down
     projection's partial sum is all-reduced by the output constraint."""
     with region(name) as rpath:
+        if p["up"].shape[-1] != (d_ff or cfg.d_ff):
+            from repro_torch.distributed.comm import copy_to_model
+            x = copy_to_model(x, plan.mesh)
         h = x @ p["up"]
         if cfg.glu:
             h = activation(cfg, x @ p["gate"]) * h
@@ -243,9 +247,14 @@ def apply_unembed(cfg, p, x: torch.Tensor, plan: RegionPlan) -> torch.Tensor:
     """Logits; on a tensor-parallel shard whose unembedding was split on
     the vocab axis, this rank's vocab block only — replicated once,
     before sampling, by the serve step
-    (:func:`repro_torch.distributed.comm.replicate_vocab`)."""
+    (:func:`repro_torch.distributed.comm.replicate_vocab`), and scored
+    block by block by the sharded trainer's loss; the input's gradient is
+    summed over the ranks (``copy_to_model``)."""
     with region("logits") as rpath:
         w = p["tokens"].T if cfg.tie_embeddings else p["unembed"]
+        if w.shape[-1] != cfg.vocab_size:
+            from repro_torch.distributed.comm import copy_to_model
+            x = copy_to_model(x, plan.mesh)
         logits = x @ w
         return plan.constrain(logits, rpath, ("batch", "seq", "vocab"))
 

@@ -147,6 +147,30 @@ def active_param_count(cfg: ArchConfig) -> int:
     return total - routed_all + routed_active
 
 
+def input_specs(cfg: ArchConfig, shape: ShapeConfig,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The inputs of the step ``shape.kind`` selects, as meta tensors of
+    their global shapes (dry runs: nothing is allocated)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dt=torch.int32):
+        return torch.empty(dims, dtype=dt, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": meta(B, S)}
+        if shape.kind == "train":
+            batch["labels"] = meta(B, S)
+        if cfg.family == "encdec":
+            batch["frames"] = meta(B, cfg.enc_len, cfg.d_model, dt=dtype)
+        if cfg.frontend == "vision_patches":
+            batch["vision_embeds"] = meta(B, N_VISION_TOKENS, cfg.d_model,
+                                          dt=dtype)
+        return batch
+    if shape.kind == "decode":
+        return {"tokens": meta(B, 1)}
+    raise ValueError(shape.kind)
+
+
 def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
     """6·N·D for training, 2·N_active·D forward-only (MoE uses active)."""
     n_active = active_param_count(cfg)

@@ -12,8 +12,10 @@ Params are the model's nested dict of tensors.  The state is
 trees shaped like the params — the layout checkpoints store
 (:mod:`repro_torch.train.checkpoint`), so a state saved by either package
 restores into the other.  Updates are made in place; nothing is read back
-to the host.  ZeRO sharding and gradient compression are not ported
-(ROADMAP queue 1 item 14).
+to the host.  Under ZeRO-1 the sharded trainer hands :func:`apply_updates`
+each rank's shard of every param, gradient and moment, and the global norm
+of the sharded gradients (:func:`global_norm` with each leaf's split
+axes).  Gradient compression is not ported.
 """
 from __future__ import annotations
 
@@ -46,20 +48,55 @@ def init_state(params) -> dict:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, summed in f32."""
+def abstract_state(param_specs) -> dict:
+    """The state :func:`init_state` makes for params shaped like
+    ``param_specs`` (tensors or anything with a ``shape``), as meta
+    tensors: nothing is allocated."""
+    z = lambda p: torch.empty(tuple(p.shape), dtype=torch.float32,  # noqa: E731
+                              device="meta")
+    return {
+        "step": torch.empty((), dtype=torch.int32, device="meta"),
+        "mu": L.tree_map(z, param_specs),
+        "nu": L.tree_map(z, param_specs),
+    }
+
+
+def global_norm(tree, split_axes=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, summed in f32.
+
+    ``split_axes``: for each leaf, in tree order, the mesh axes its
+    block is split over (a sharded step's gradients).  The squares of the
+    leaves split alike are summed here, then over those axes' ranks (one
+    all-reduce an axis), so a leaf replicated over an axis counts once:
+    every rank gets the norm of the whole, unsharded gradient."""
     sq = [torch.linalg.vector_norm(x, dtype=torch.float32).square()
           for x in L.tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+    if split_axes is None:
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    from repro_torch.distributed import comm
+    groups: dict = {}
+    for s, axes in zip(sq, split_axes):
+        groups.setdefault(tuple(sorted(axes)), []).append(s)
+    parts = []
+    for axes in sorted(groups):
+        part = torch.sum(torch.stack(groups[axes]))
+        for a in axes:
+            part = comm.all_reduce(part, mesh, a)
+        parts.append(part)
+    return torch.sqrt(torch.sum(torch.stack(parts)))
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state, lr_scale=1.0):
+def apply_updates(cfg: AdamWConfig, params, grads, state, lr_scale=1.0,
+                  gnorm=None):
     """One AdamW step, in place; returns (params, state, metrics) — the
     same param and moment tensors, a new ``step`` and ``{"grad_norm",
-    "lr"}`` as 0-dim f32 tensors (``grad_norm`` before clipping)."""
+    "lr"}`` as 0-dim f32 tensors (``grad_norm`` before clipping).  A
+    sharded step passes its global ``gnorm`` (the leaves here are its
+    shards)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     stepf = step.to(torch.float32)
     b1t = 1.0 - torch.pow(cfg.b1, stepf)

@@ -43,7 +43,8 @@ from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import (cache_shardings, leaf_block,
                                               local_shape, param_shardings,
                                               shard_leaf)
-from repro_torch.launch.mesh import backend_for, make_host_mesh, rank_device
+from repro_torch.launch.mesh import (backend_for, make_host_mesh,
+                                     rank_device, start_ranks, worker_store)
 from repro_torch.models import layers as L
 
 # control messages: a header of HEADER int64s, [op, args...]
@@ -287,24 +288,18 @@ class Ranks:
 
     def __init__(self, cfg, world: int, device, *, timeout_s: float = 300):
         import torch.distributed as dist
-        import torch.multiprocessing as mp
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.cfg, self.world = cfg, int(world)
         self.backend = backend_for(device, self.world)
         self.device = rank_device(device, 0, self.backend)
-        store = dist.TCPStore("localhost", 0, self.world, is_master=True,
-                              wait_for_workers=False,
-                              timeout=datetime.timedelta(seconds=timeout_s))
-        ctx = mp.get_context("spawn")
-        self.procs = [ctx.Process(
-            target=_worker_main, daemon=True,
-            args=(r, self.world, store.port, self.backend, str(device), cfg,
-                  timeout_s)) for r in range(1, self.world)]
-        for p in self.procs:
-            p.start()
-        self._await_workers(store, timeout_s)
+        try:
+            store, self.procs = start_ranks(
+                self.world, _worker_main,
+                (self.backend, str(device), cfg, timeout_s), timeout_s)
+        except RuntimeError as e:
+            raise RuntimeError(f"tensor-parallel {e}") from None
         dist.init_process_group(
             self.backend, store=store, rank=0, world_size=self.world,
             timeout=datetime.timedelta(seconds=timeout_s))
@@ -312,23 +307,6 @@ class Ranks:
         self.meshes: dict = {}          # degree -> mesh, for rank 0's engines
         self._plans: dict = {}          # plan message -> id, since init()
         self._closed = False
-
-    def _await_workers(self, store, timeout_s: float) -> None:
-        """Wait until every worker has reached the store, failing at once
-        (and terminating the rest) when one has died on the way."""
-        import time
-        keys = [f"ready{r}" for r in range(1, self.world)]
-        t0 = time.monotonic()
-        while not store.check(keys):
-            dead = [(r + 1, p.exitcode) for r, p in enumerate(self.procs)
-                    if not p.is_alive()]
-            if dead or time.monotonic() - t0 > timeout_s:
-                for p in self.procs:
-                    p.terminate()
-                raise RuntimeError(
-                    f"tensor-parallel worker ranks did not start "
-                    f"(rank, exit code): {dead or 'timed out'}")
-            time.sleep(0.05)
 
     def line(self) -> str:
         """What the ranks are, for the log: the backend and why."""
@@ -436,9 +414,7 @@ def _worker_main(rank: int, world: int, port: int, backend: str,
         dev = rank_device(torch.device(device), rank, backend)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        store = dist.TCPStore("localhost", port, world, is_master=False,
-                              timeout=datetime.timedelta(seconds=timeout_s))
-        store.set(f"ready{rank}", "1")
+        store = worker_store(rank, world, port, timeout_s)
         dist.init_process_group(
             backend, store=store, rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))

@@ -1,10 +1,11 @@
 """Elastic restart + straggler telemetry, on PyTorch.
 
 * ``reshard``: place a (logically unsharded) restored train state on the
-  device training resumes on.  A port plan carries no mesh, so every leaf
-  goes whole to one device; sharding over several is ROADMAP queue 1 item
-  14.  Data order stays exact because the pipeline is a pure function of
-  (seed, step) (data/pipeline.py).
+  device training resumes on — whole on one device, or, when the plan
+  carries a mesh, each leaf's block for this rank (the recovery path
+  after losing a node: restart with a smaller data axis, reload the last
+  checkpoint, keep training).  Data order stays exact because the
+  pipeline is a pure function of (seed, step) (data/pipeline.py).
 * ``StepWatchdog``: per-step walltime telemetry with a robust z-score flag —
   you cannot drop a straggler mid-step, but you can detect it, alert, and
   evict-and-resume (checkpoint + restart).
@@ -17,18 +18,43 @@ from typing import Any, Optional
 import numpy as np
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.core.policy import RegionPlan
+from repro_torch.core.policy import RegionPlan, legal_spec
+from repro_torch.distributed.sharding import mesh_coords, shard_leaf
 from repro_torch.models import layers as L
 
 
 def reshard(state: Any, axes_tree: Any = None,
             plan: Optional[RegionPlan] = None,
             device: DeviceLike = None) -> Any:
-    """Every leaf of ``state`` on ``device`` (``cuda`` unless named); the
-    logical axes and the plan's rules are accepted for the JAX package's
-    signature and place nothing on one device."""
+    """Every leaf of ``state`` on ``device`` (``cuda`` unless named).
+    With a mesh on ``plan``, this rank's block of each leaf: its spec is
+    the plan-legal one of the leaf's logical axes (``axes_tree``, the
+    state's structure; a leaf without axes stays whole), cut at this
+    rank's mesh coordinates (``sharding.shard_leaf``).  Without one, the
+    whole leaf."""
     dev = resolve_device(device)
-    return L.tree_map(lambda x: x.to(dev), state)
+    if plan is None or plan.mesh is None:
+        return L.tree_map(lambda x: x.to(dev), state)
+    coords = mesh_coords(plan.mesh)
+
+    def put(x, axes):
+        axes = tuple(axes) if axes else (None,) * x.ndim
+        spec = legal_spec(x.shape, axes, plan.rules, plan.mesh)
+        blk = shard_leaf(x, spec, plan.mesh, coords)
+        if blk.numel() < x.numel():
+            # a block split on the leading dim is a view: its own storage,
+            # so that the full leaf can be freed
+            blk = blk.clone()
+        return blk.to(dev)
+
+    return _map2(put, state, axes_tree)
+
+
+def _map2(fn, a: Any, b: Any) -> Any:
+    if isinstance(a, dict):
+        return {k: _map2(fn, a[k], b[k] if b is not None else None)
+                for k in sorted(a)}
+    return fn(a, b)
 
 
 class StepWatchdog:

@@ -14,9 +14,16 @@
 * AdamW from :mod:`repro_torch.optim.adamw`, in place, under the
   ``optimizer`` region.
 
-Every family trains (an MoE model's load-balancing aux loss joins the
-loss at ``AUX_WEIGHT``; a VLM scores only the tokens after its vision
-prefix).  The recurrent and hybrid models' scans run forward on the
+Every family trains on one device (an MoE model's load-balancing aux
+loss joins the loss at ``AUX_WEIGHT``; a VLM scores only the tokens after
+its vision prefix).  The dense family also trains over a mesh of ranks,
+each holding its block of every leaf (``grad_shardings`` /
+``opt_shardings``, the JAX package's ZeRO-1 layouts): the layers'
+collectives make each rank's gradient that of its block, the loss over
+vocab-split logits is a vocab-parallel cross-entropy, each gradient is
+reduced over the batch axes — reduce-scattered over ``data`` to its
+moments' shard under ZeRO-1 — AdamW updates the shard, and the updated
+param is all-gathered over ``data``.  The recurrent and hybrid models' scans run forward on the
 hand-written kernels one segment at a time, and their gradient
 recomputes each segment with the plain differentiable form
 (:func:`repro_torch.kernels.ops.wkv` / ``ssd``); the attention and
@@ -29,8 +36,10 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core.policy import RegionPlan, null_plan
+from repro_torch.core.policy import RegionPlan, mesh_shape, null_plan
 from repro_torch.core.regions import region
+from repro_torch.distributed import comm
+from repro_torch.distributed import sharding as shard_mod
 from repro_torch.models import layers as L
 from repro_torch.models.model import N_VISION_TOKENS, Model
 from repro_torch.optim import adamw
@@ -69,6 +78,48 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return _CrossEntropy.apply(logits, labels.long())
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """:class:`_CrossEntropy` over logits split on the vocab across the
+    ``model`` axis: each rank holds columns ``[i*Vl, (i+1)*Vl)``.  The
+    rows' max and their exp-sums are all-reduced over ``model`` (max,
+    then sum), and the gold logit is taken where it lives and summed over
+    ``model``; nothing of the full vocab is formed.  The backward is each
+    rank's block of (softmax - onehot) / n, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mesh):
+        x = logits.float()
+        vl = x.shape[-1]
+        top = comm.all_reduce(x.amax(-1), mesh, op="max")
+        e = torch.sub(x, top[..., None]).exp_()
+        logz = comm.all_reduce(e.sum(-1), mesh).log_().add_(top)
+        del e
+        ids = labels - comm.model_index(mesh) * vl
+        hit = (ids >= 0) & (ids < vl)
+        ids = ids.clamp(0, vl - 1)
+        gold = torch.gather(x, -1, ids[..., None])[..., 0]
+        gold = comm.all_reduce(torch.where(hit, gold, torch.zeros_like(gold)),
+                               mesh)
+        ctx.save_for_backward(logits, ids, hit, logz)
+        return torch.mean(logz - gold)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, ids, hit, logz = ctx.saved_tensors
+        p = torch.sub(logits.float(), logz[..., None]).exp_()
+        p.scatter_add_(-1, ids[..., None], -hit[..., None].float())
+        p.mul_(g / logz.numel())
+        return p.to(logits.dtype), None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 mesh) -> torch.Tensor:
+    """:func:`cross_entropy` of vocab-split ``logits`` (..., V/m) on a
+    mesh whose ``model`` axis is m: every rank gets the loss of the full
+    logits."""
+    return _VocabParallelCE.apply(logits, labels.long(), mesh)
+
+
 def make_loss_fn(model: Model, plan: Optional[RegionPlan], unroll: bool):
     """loss_fn(params, batch) -> (loss, {"ce", "aux"}).  ``unroll`` is
     accepted for the JAX package's signature and has no effect: eager
@@ -84,7 +135,10 @@ def make_loss_fn(model: Model, plan: Optional[RegionPlan], unroll: bool):
             # JAX package does)
             logits = logits[:, N_VISION_TOKENS:]
             labels = labels[:, N_VISION_TOKENS:]
-        ce = cross_entropy(logits, labels)
+        if logits.shape[-1] != model.cfg.vocab_size:
+            ce = vocab_parallel_cross_entropy(logits, labels, plan.mesh)
+        else:
+            ce = cross_entropy(logits, labels)
         return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
     return loss_fn
@@ -127,16 +181,20 @@ def make_train_step(model: Model, plan: Optional[RegionPlan] = None, *,
                     accum: str = "scan", schedule_total: int = 10_000,
                     grad_shardings: Any = None, opt_shardings: Any = None):
     """The train step.  ``unroll`` has no effect eagerly (see
-    :func:`make_loss_fn`).  ``grad_shardings``/``opt_shardings`` are the
-    JAX package's ZeRO-1 layouts; a port plan has no mesh, so they must be
-    None (ROADMAP queue 1 item 14).  The params and moments are updated in
-    place and returned; metrics are 0-dim tensors on the params' device,
-    read back by nothing here."""
-    if grad_shardings is not None or opt_shardings is not None:
-        raise NotImplementedError(
-            "sharded gradients and optimizer state are not ported yet "
-            "(ROADMAP queue 1 item 14)")
+    :func:`make_loss_fn`).  The params and moments are updated in place
+    and returned; metrics are 0-dim tensors on the params' device, read
+    back by nothing here.
+
+    ``grad_shardings``/``opt_shardings``: the specs of the params and of
+    the moments (``sharding.param_shardings`` and
+    ``opt_state_shardings(...)["mu"]``) on ``plan.mesh``; the step then
+    runs on every rank of the mesh (the same collectives in the same
+    order), on this rank's blocks: params and grads at the param specs'
+    local shapes, moments at the moment specs'.  Dense family only."""
     grad_fn = make_grad_fn(model, plan, unroll=unroll)
+    sync = None
+    if grad_shardings is not None or opt_shardings is not None:
+        sync = _GradSync(model, plan, grad_shardings, opt_shardings)
 
     def train_step(params, opt_state, batch):
         if microbatch <= 1:
@@ -166,12 +224,95 @@ def make_train_step(model: Model, plan: Optional[RegionPlan] = None, *,
                 opt_state["step"] + 1,
                 warmup=max(min(100, schedule_total // 10), 1),
                 total=schedule_total)
-            params2, opt2, om = adamw.apply_updates(
-                opt_cfg, params, grads, opt_state, lr_scale)
+            if sync is None:
+                params2, opt2, om = adamw.apply_updates(
+                    opt_cfg, params, grads, opt_state, lr_scale)
+            else:
+                loss, metrics = sync.mean_metrics(loss, metrics)
+                params2, opt2, om = sync.update(opt_cfg, params, grads,
+                                                opt_state, lr_scale)
         metrics = dict(metrics, loss=loss, **om)
         return params2, opt2, metrics
 
     return train_step
+
+
+class _GradSync:
+    """The sharded step's side of the update: each rank's gradients
+    reduced over the batch axes — reduce-scattered over ``data`` to the
+    moments' shard where ZeRO-1 split the moments, all-reduced where it
+    could not — AdamW on the shards with the norm of the whole gradient,
+    and every ZeRO-1 param all-gathered over ``data``.  Every rank walks
+    the leaves in the same order, so the collectives match."""
+
+    def __init__(self, model: Model, plan: Optional[RegionPlan],
+                 grad_shardings, opt_shardings):
+        if plan is None or plan.mesh is None:
+            raise ValueError("sharded gradients need a plan with a mesh")
+        shard_mod.require_sharded_family(model.cfg)
+        self.mesh = plan.mesh
+        sizes = mesh_shape(self.mesh)
+        if grad_shardings is None:
+            grad_shardings = shard_mod.param_shardings(model, plan)
+        if opt_shardings is None:
+            opt_shardings = grad_shardings
+        pspecs = L.tree_leaves(grad_shardings)
+        ospecs = L.tree_leaves(opt_shardings)
+        self.zdims = [shard_mod.zero1_dim(p, o)
+                      for p, o in zip(pspecs, ospecs)]
+        if sizes.get("data", 1) == 1:
+            self.zdims = [None] * len(pspecs)
+        self.split = [tuple(a for a in shard_mod.spec_axes(
+            o if z is not None else p) if sizes.get(a, 1) > 1)
+            for p, o, z in zip(pspecs, ospecs, self.zdims)]
+        batch = plan.rules.get("batch")
+        batch = (batch,) if isinstance(batch, str) else tuple(batch or ())
+        self.batch_axes = tuple(a for a in batch if sizes.get(a, 1) > 1)
+        self.n_batch = 1
+        for a in self.batch_axes:
+            self.n_batch *= sizes[a]
+
+    def mean_metrics(self, loss, metrics):
+        """The loss and metrics averaged over the batch axes (each rank's
+        are its own rows' means)."""
+        if not self.batch_axes:
+            return loss, metrics
+        keys = sorted(metrics)
+        v = torch.stack([loss.float()] + [metrics[k].float() for k in keys])
+        for a in self.batch_axes:
+            v = comm.all_reduce(v, self.mesh, a)
+        v = v / self.n_batch
+        return v[0], {k: v[i + 1] for i, k in enumerate(keys)}
+
+    def _reduce(self, g, zdim):
+        axes = self.batch_axes
+        if zdim is not None:
+            g = comm.reduce_scatter(g, zdim, self.mesh, "data")
+            axes = tuple(a for a in axes if a != "data")
+        for a in axes:
+            g = comm.all_reduce(g.contiguous(), self.mesh, a)
+        return g / self.n_batch if self.n_batch > 1 else g
+
+    @torch.no_grad()
+    def update(self, opt_cfg, params, grads, opt_state, lr_scale):
+        leaves = L.tree_leaves(params)
+        gs = [self._reduce(g, z)
+              for g, z in zip(L.tree_leaves(grads), self.zdims)]
+        gnorm = adamw.global_norm(_unflatten_like(params, gs), self.split,
+                                  self.mesh)
+        i_data = comm.axis_index(self.mesh, "data")
+        views = []
+        for p, g, z in zip(leaves, gs, self.zdims):
+            n = g.shape[z] if z is not None else 0
+            views.append(p.narrow(z, i_data * n, n) if z is not None else p)
+        _, opt2, om = adamw.apply_updates(
+            opt_cfg, _unflatten_like(params, views),
+            _unflatten_like(params, gs), opt_state, lr_scale, gnorm=gnorm)
+        for p, v, z in zip(leaves, views, self.zdims):
+            if z is not None:
+                p.copy_(comm.all_gather(v.contiguous(), z, self.mesh,
+                                        "data"))
+        return params, opt2, om
 
 
 def make_eval_step(model: Model, plan: Optional[RegionPlan] = None, *,

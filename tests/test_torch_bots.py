@@ -318,7 +318,7 @@ class _MetaOnly(TorchDispatchMode):
 # lower end of its bound.
 FLOPS_BOUND = {"strassen": 1.25, "sparselu": 1.25, "nqueens": 2.0,
                "health": 2.0, "floorplan": 2.0}
-FLOPS_RATIO = {"strassen": 0.9286, "nqueens": 0.7173, "sparselu": 0.8080,
+FLOPS_RATIO = {"strassen": 0.9222, "nqueens": 0.7299, "sparselu": 0.8255,
                "health": 0.8823, "floorplan": 0.8154}
 
 

@@ -250,6 +250,18 @@ def engines():
     return jeng, eng, weight_bytes
 
 
+#: port bytes / JAX bytes of each region of the reduced stablelm-1.6b
+#: gather decode step.  The attention, MLP and logits regions agree within
+#: the counters' 25% band.  The top level and ``embed`` do not, by the JAX
+#: count's rules: it charges every gather fusion its whole operand (the
+#: embedding table), and each unrolled layer's slice of the stacked
+#: weights is a copy there, a view here.  Pinned so that a change of either
+#: package's rules shows here.
+BYTES_RATIO = {"": 0.0527, "embed": 0.0156, "layer0": 1.5400,
+               "layer0/attn": 0.9984, "layer0/mlp": 1.0192, "layer1": 1.5440,
+               "layer1/attn": 0.9987, "layer1/mlp": 1.0192, "logits": 1.0}
+
+
 def test_gather_decode_step_counts_match_jax(engines):
     jeng, eng, weight_bytes = engines
     jrc, rc = jeng._pool_rc, eng._pool_rc
@@ -266,6 +278,30 @@ def test_gather_decode_step_counts_match_jax(engines):
           f"({rc.total.bytes:.0f} / {jrc.total.bytes:.0f}), flops "
           f"{rc.total.flops / jrc.total.flops:.4f}, weights "
           f"{weight_bytes} bytes")
+
+
+@pytest.mark.parametrize("region", sorted(BYTES_RATIO))
+def test_gather_decode_step_bytes_by_region(engines, region):
+    """Each region's port/JAX bytes at its pinned ratio; the tap region
+    (the tree's ``log_bytes`` and ``arithmetic_intensity``), the MLP and
+    the logits within the 25% band."""
+    jeng, eng, _ = engines
+    ratio = (eng._pool_rc.regions[region].bytes
+             / jeng._pool_rc.regions[region].bytes)
+    assert ratio == pytest.approx(BYTES_RATIO[region], rel=0.02)
+    if "attn" in region or "mlp" in region or region == "logits":
+        assert 0.75 <= ratio <= 1.25, ratio
+
+
+def test_unsafe_view_is_free():
+    """``matmul`` of a 3-D input emits ``mm`` and then ``_unsafe_view``:
+    only the product is counted, as the HLO count takes a reshape for a
+    free ``bitcast``."""
+    x, w = torch.ones(2, 3, 8), torch.ones(8, 4)
+    rc = counters.collect(lambda a, b: a @ b, x, w)
+    assert rc.total.ops == 1
+    assert rc.total.flops == 2 * 2 * 3 * 4 * 8
+    assert rc.total.bytes == 4 * (2 * 3 * 8 + 8 * 4 + 2 * 3 * 4)
 
 
 def test_counts_equal_from_cpu_or_meta_and_run_nothing(engines):

@@ -23,7 +23,8 @@ for m in ("repro_torch.serve.graphs", "repro_torch.optim.adamw",
           "repro_torch.models.moe", "repro_torch.models.whisper",
           "repro_torch.serve.telemetry", "repro_torch.serve.tp",
           "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
-          "repro_torch.distributed.comm"):
+          "repro_torch.distributed.comm", "repro_torch.launch.dryrun",
+          "repro_torch.launch.report", "repro_torch.launch.hillclimb"):
     assert m in mods, (m, mods)
 for m in mods:
     importlib.import_module(m)
@@ -38,7 +39,8 @@ if not torch.cuda.is_available():
     model = build(get_config("stablelm-1.6b").reduced())
     params = model.init(0, device="cpu")
     for call in (lambda: Engine(model, params), lambda: model.init(0),
-                 lambda: train_main(["--steps", "1"])):
+                 lambda: train_main(["--steps", "1"]),
+                 lambda: train_main(["--steps", "1", "--ranks", "2"])):
         try:
             call()
         except RuntimeError as e:

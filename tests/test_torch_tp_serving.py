@@ -398,9 +398,12 @@ def test_tp2_step_counters_match_jax_census(runs):
     and its collectives) against the JAX package's HLO count of its tp-2
     step, per device, in the counters' 25% band: the total flops and each
     of the top regions' flops; the bytes as the cut each rank takes (tp-2
-    over tp-1 bytes) and on the regions whose tp-1 bytes already agree
-    (the MLP and the logits: the JAX step's top level and its attention
-    count buffer copies an eager step does not make, at any degree).  The
+    over tp-1 bytes) and on the MLP and logits regions.  At tp 1 the
+    attention, MLP and logits regions' bytes agree within the band too,
+    and the top level's and ``embed``'s do not, by the JAX count's rules
+    (each layer's slice of the stacked weights is a copy there, and a
+    gather fusion is charged its whole table):
+    ``tests/test_torch_counters.py`` pins each region's ratio.  The
     port's collectives are all-reduces — the partial sums, and the
     logits' replication through a zero-filled full-vocab buffer — where
     JAX gathers the logits."""
