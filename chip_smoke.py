@@ -186,8 +186,8 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    equal bit for bit are not expected there.
 
 10. [bots]: the BOTS-analog suite (``repro_torch.bots``) swept over
-   ``suite.DEGREES`` with ``suite.time_workload(name, degree, 3,
-   **size)`` at BOTS_SIZES: strassen n 8192 depth 2 (f32, TF32 off),
+   ``suite.DEGREES`` with ``suite.time_workload(name, degree,
+   BOTS_REPEATS, **size)`` (2 timed calls after a warm one) at BOTS_SIZES: strassen n 8192 depth 2 (f32, TF32 off),
    nqueens n 13 prefix 4 (the lock-step DFS, its blocks replayed as CUDA
    graphs), sparselu nb 50 bs 100 band 3 (the host-driven LU), health
    1,048,576 villages x 64 steps, floorplan at the JAX package's size.
@@ -251,15 +251,21 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    tp-2 shard's shape (KVH 16, G 1, HD 64, bf16, the timed config's
    lengths) with its bound; the kernels' record of the paged kernel
    gains ``launches_tp`` (both ranks' launches in the bf16 tp-2 serves).
+   Phase 13's two children (the dry-run's, from phase 11 on, and the
+   other families' sharded training on the card) run beside this phase.
 
 13. [dryrun]: the port's dry-run (``repro_torch.launch.dryrun``) in a
    subprocess that sees no card, so that its fake process group never
-   meets a gloo group: stablelm-1.6b at full width, train_4k, prefill_32k
+   meets a gloo group (started before phase 11, it counts on the host
+   beside phases 11 and 12): stablelm-1.6b at full width, train_4k, prefill_32k
    and decode_32k on the 16x16 mesh over a fake world of 256 ranks and
    train_4k on 2x16x16 over 512, each row's compact lines printed as the
    JAX package's ``run_cell`` prints them; then the two-rank train cells
-   of [train-sharded] on its (data, model) meshes.  Gate: every cell
-   ``ok``.
+   of [train-sharded] on its (data, model) meshes; then train_4k
+   of rwkv6-3b, zamba2-2.7b, internvl2-26b and whisper-large-v3 and
+   long_500k of rwkv6-3b and zamba2-2.7b on 16x16 at full width, and the
+   (data 1, model 2) train cells of [train-sharded]'s other families.
+   Gate: every cell ``ok``.
    [train-sharded]: the sharded trainer through the launcher
    (``repro_torch.launch.train.main``, this process rank 0): stablelm-1.6b
    at full width and depth, bf16 params and f32 moments from
@@ -273,7 +279,20 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    dry-run's ``argument_size_in_bytes`` for the same cell.  Printed, not
    gated: the measured peak against the dry-run's, and ms a step (two
    ranks on one card over gloo: not a speed).  A rank that dies fails the
-   phase.
+   phase.  The other families, in a child on the card (the launcher's
+   runs in turn, its rank 0 the child) that starts before phase 12 and
+   runs beside it: rwkv6-3b and zamba2-2.7b at B 1 x S 128,
+   whisper-large-v3 at B 2 x S 256, at full width and depth: one step on
+   one rank, then 2 steps on (data 1, model 2) under the train plan
+   (every layer remat).  stablelm's runs start once the child has only
+   whisper's left, and run beside them; the families' gates are read
+   after them (ms a step beside other ranks: not a speed).  Gates
+   as stablelm's (finite, step 0's loss, allocated bytes against the
+   dry-run's cell), and each rank's scan launches (``wkv_fused`` /
+   ``ssd_fused``) layers x segments a step on one rank, twice that under
+   remat (the backward recomputes each layer's forward); whisper launches
+   no kernel.  (internvl2-26b is counted in the dry-run only: its f32
+   moments alone take 159 GB.)
 
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits;
@@ -283,8 +302,8 @@ the [vlm] phase and ``--serve-subsystems`` only phase 9 (each after
 building the paged kernel), ``--whisper`` only the [whisper] phase and
 ``--bots`` only phase 10 (no kernel build), ``--train-recurrent`` only
 phase 11 (after building the scan kernels), ``--tp`` only phase 12
-(after building the paged kernel), ``--dryrun`` only phase 13 (no kernel
-build).
+(after building the paged kernel), ``--dryrun`` only phase 13 (after
+building the scan kernels).
 
 Random weights come from a seeded torch.Generator.  The launch counts of
 each serve phase are set to 0 just before it and read just after.  The
@@ -472,6 +491,8 @@ BOTS_SIZES = {"strassen": dict(n=8192, depth=2),
 # SparseLU and Health at SMT2, NQueens at SMT4, Floorplan at SMT1) as a
 # degree of suite.DEGREES, whose 1 / 4 / 8 / 16 stand for its 1 / 32 / 64
 # / 128 threads on 32 cores: SMT1 4, SMT2 8, SMT4 16
+# timed calls a (workload, degree) after the warm one (their median)
+BOTS_REPEATS = 2
 PAPER_BEST = {"strassen": 8, "nqueens": 16, "sparselu": 8, "health": 8,
               "floorplan": 4}
 
@@ -3395,59 +3416,103 @@ def tp_phase(torch, serve=TP_SERVE) -> list:
 # halves of the heads, ff and vocab, each rank rounding its part)
 SHARDED_TRAIN = dict(batch=4, seq=512, steps=2, meshes=((2, 1), (1, 2)),
                      loss_rtol=1e-2, alloc_rtol=0.01)
+# [train-sharded], the other families: 2 steps on (data 1, model 2) after
+# one step on one rank, at (B, S) by arch: the recurrent ones B 1 x S 128
+# (one 128-step segment of the scans' gradient, whose plain backward is
+# host-bound), whisper B 2 x S 256 (``Model.init``'s stacked weights,
+# scaled by the layer count, make its grad norm ~1e9 and its step
+# chaotic: its step-0 loss on two ranks stood 4.4e-3 off one rank's at B
+# 2 x S 256, 8.6e-3 at B 1 x S 128, on an H100 80GB HBM3 at 700 W, and
+# 3.7e-3 in f32 at B 1 x S 128; the gate's 1e-2 wants the loss over more
+# tokens); stablelm's runs start once only `beside`'s are left, whose
+# ranks fit on the card beside stablelm's; [dryrun] counts train_4k
+# of `train` and long_500k of `long` on 16x16, and the (1, 2) cell of
+# each trained arch at its (B, S)
+SHARDED_FAMILIES = dict(shapes={"rwkv6-3b": (1, 128), "zamba2-2.7b": (1, 128),
+                                "whisper-large-v3": (2, 256)},
+                        steps=2, mesh=(1, 2), beside=("whisper-large-v3",),
+                        train=("rwkv6-3b", "zamba2-2.7b", "internvl2-26b",
+                               "whisper-large-v3"),
+                        long=("rwkv6-3b", "zamba2-2.7b"),
+                        scans={"rwkv6-3b": "wkv_fused",
+                               "zamba2-2.7b": "ssd_fused"})
 
 _DRYRUN_CHILD = r"""
 import json, sys
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
-out, arch, st = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+out, arch, st, fam = (sys.argv[1], sys.argv[2], json.loads(sys.argv[3]),
+                      json.loads(sys.argv[4]))
+runs = [[arch, "--mesh", "single"],
+        [arch, "--shape", "train_4k", "--mesh", "multi"]]
+runs += [[a, "--shape", "train_4k", "--mesh", "single"] for a in fam["train"]]
+runs += [[a, "--shape", "long_500k", "--mesh", "single"] for a in fam["long"]]
 codes = []
-for argv in (["--mesh", "single"], ["--shape", "train_4k", "--mesh", "multi"]):
+for argv in runs:
     try:
-        dryrun.main(["--arch", arch, "--out", out, "--force"] + argv)
+        dryrun.main(["--arch", argv[0], "--out", out, "--force"] + argv[1:])
     except SystemExit as e:
         codes.append(e.code or 0)
-shape = ShapeConfig("train_%d" % st["seq"], st["seq"], st["batch"], "train")
 cells = {}
-for dims in st["meshes"]:
-    row = dryrun.run_cell(arch, shape, False, verbose=False, microbatch=1,
+for a, (b, s), dims in ([(arch, (st["batch"], st["seq"]), d)
+                         for d in st["meshes"]]
+                        + [(a, bs, fam["mesh"])
+                           for a, bs in fam["shapes"].items()]):
+    shape = ShapeConfig("train_%d" % s, s, b, "train")
+    row = dryrun.run_cell(a, shape, False, verbose=False, microbatch=1,
                           mesh_dims=tuple(dims))
-    cells["x".join(map(str, dims))] = row["memory"]
+    cells.setdefault(a, {})["x".join(map(str, dims))] = row["memory"]
 print("DRYRUN " + json.dumps({"codes": codes, "cells": cells}))
 """
 
 
-def dryrun_phase(torch) -> dict:
-    """[dryrun]: phase 13 of the module docstring.  Returns the memory of
-    the two-rank train cells of SHARDED_TRAIN, by mesh label."""
-    t0 = time.perf_counter()
+def start_dryrun():
+    """Start [dryrun]'s child (phase 13 of the module docstring), which
+    sees no card; returns (the process, its rows' path, its start)."""
     out = ROOT / "build" / "dryrun_torch.jsonl"
     out.parent.mkdir(parents=True, exist_ok=True)
     if out.exists():
         out.unlink()
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
-    res = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-c", _DRYRUN_CHILD, str(out), ARCH,
-         json.dumps(SHARDED_TRAIN)], env=env, capture_output=True,
-        text=True, timeout=600)
-    for line in res.stdout.splitlines():
+         json.dumps(SHARDED_TRAIN), json.dumps(SHARDED_FAMILIES)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out, time.perf_counter()
+
+
+def dryrun_phase(torch, started) -> dict:
+    """[dryrun]: phase 13 of the module docstring, from the child
+    ``start_dryrun`` started.  Returns the memory of the two-rank train
+    cells of SHARDED_TRAIN and SHARDED_FAMILIES, by arch and mesh
+    label."""
+    proc, out, t0 = started
+    stdout, stderr = proc.communicate(timeout=600)
+    for line in stdout.splitlines():
         if line.startswith(("[", "  ", "SKIP", "dry-run")):
             log(f"[dryrun] {line}")
-    check(res.returncode == 0, f"the dry-run failed:\n{res.stderr[-3000:]}")
-    got = json.loads([ln for ln in res.stdout.splitlines()
+    check(proc.returncode == 0, f"the dry-run failed:\n{stderr[-3000:]}")
+    got = json.loads([ln for ln in stdout.splitlines()
                       if ln.startswith("DRYRUN ")][-1][len("DRYRUN "):])
     rows = [json.loads(ln) for ln in out.read_text().splitlines()]
-    cells = {(r["shape"], r["mesh"]) for r in rows if r.get("ok")}
-    want = {(s, "16x16") for s in ("train_4k", "prefill_32k", "decode_32k")}
-    want.add(("train_4k", "2x16x16"))
-    check(got["codes"] == [0, 0] and cells == want and len(rows) == 4,
+    cells = {(r["arch"], r["shape"], r["mesh"]) for r in rows if r.get("ok")}
+    fam = SHARDED_FAMILIES
+    want = {(ARCH, s, "16x16")
+            for s in ("train_4k", "prefill_32k", "decode_32k")}
+    want.add((ARCH, "train_4k", "2x16x16"))
+    want |= {(a, "train_4k", "16x16") for a in fam["train"]}
+    want |= {(a, "long_500k", "16x16") for a in fam["long"]}
+    check(got["codes"] == [0] * (2 + len(fam["train"]) + len(fam["long"]))
+          and cells == want and len(rows) == len(want),
           f"dry-run cells {sorted(cells)}, exit codes {got['codes']}")
-    for name, mem in got["cells"].items():
-        log(f"[dryrun] {ARCH} train B {SHARDED_TRAIN['batch']} x S "
-            f"{SHARDED_TRAIN['seq']} on a {name} mesh: arguments "
-            f"{mem['argument_size_in_bytes']} bytes, peak "
-            f"{_gib(mem['peak_bytes_per_device'])} a rank")
-    log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
+    for arch, by_mesh in got["cells"].items():
+        B, S = ((SHARDED_TRAIN["batch"], SHARDED_TRAIN["seq"]) if arch == ARCH
+                else fam["shapes"][arch])
+        for name, mem in by_mesh.items():
+            log(f"[dryrun] {arch} train B {B} x S {S} on "
+                f"a {name} mesh: arguments {mem['argument_size_in_bytes']} "
+                f"bytes, peak {_gib(mem['peak_bytes_per_device'])} a rank")
+    log(f"[dryrun] child {time.perf_counter() - t0:.1f} s (from its start)")
     return got["cells"]
 
 
@@ -3465,19 +3530,9 @@ def train_sharded_phase(torch, predicted: dict) -> None:
         f"over gloo (ranks share a device): two ranks on one card")
     base = ["--full", "--device", "cuda", "--batch", str(st["batch"]),
             "--seq", str(st["seq"]), "--log-every", "1"]
-    build_dir = ROOT / "build"
-    build_dir.mkdir(parents=True, exist_ok=True)
 
     def run(extra, tag):
-        path = build_dir / f"smoke_sharded_{tag}.json"
-        _free(torch)
-        t = time.perf_counter()
-        launch_train.main(base + extra + ["--stats-out", str(path)])
-        ranks = json.loads(path.read_text())["ranks"]
-        path.unlink()
-        log(f"[train-sharded] {tag}: {time.perf_counter() - t:.1f} s of "
-            f"launcher")
-        return ranks
+        return _launch_stats(torch, launch_train, base + extra, tag)
 
     (one,) = run(["--steps", "1"], "one-rank")
     check(np.isfinite(one["loss"][0]), "one-rank loss is not finite")
@@ -3506,14 +3561,15 @@ def train_sharded_phase(torch, predicted: dict) -> None:
                       for r in ranks),
                   f"{name}: moment bytes {[r['moment_bytes'] for r in ranks]}"
                   f" are not half of one rank's {one['moment_bytes']}")
-        want = predicted[name]["argument_size_in_bytes"]
+        want = predicted[ARCH][name]["argument_size_in_bytes"]
         got = r0["allocated_after_placement"]
         log(f"[train-sharded] {name}: rank 0 allocated after placement "
             f"{got} bytes against the dry-run's arguments {want} "
             f"({got / want - 1:+.4%}); moments a rank "
             f"{[r['moment_bytes'] for r in ranks]}; peak allocated "
             f"{_gib(r0['peak_allocated'])} against the dry-run's "
-            f"{_gib(predicted[name]['peak_bytes_per_device'])}; ms a step "
+            f"{_gib(predicted[ARCH][name]['peak_bytes_per_device'])}; ms a "
+            f"step "
             f"(host clock to the loss's readback) "
             f"{[round(x, 1) for x in r0['step_ms']]} (two ranks on one card "
             f"over gloo: not a speed)")
@@ -3523,9 +3579,209 @@ def train_sharded_phase(torch, predicted: dict) -> None:
     log(f"[train-sharded] phase {time.perf_counter() - t0:.1f} s")
 
 
-def sharded_phase(torch) -> None:
-    """Phase 13: [dryrun] then [train-sharded]."""
-    train_sharded_phase(torch, dryrun_phase(torch))
+def _launch_stats(torch, launch_train, argv, tag) -> list:
+    """Every rank's stats of one launcher run (``--stats-out``)."""
+    path = _stats_path(tag)
+    _free(torch)
+    t = time.perf_counter()
+    launch_train.main(argv + ["--stats-out", str(path)])
+    ranks = json.loads(path.read_text())["ranks"]
+    path.unlink()
+    log(f"[train-sharded] {tag}: {time.perf_counter() - t:.1f} s of "
+        f"launcher")
+    return ranks
+
+
+def _stats_path(tag: str) -> Path:
+    build_dir = ROOT / "build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    return build_dir / f"smoke_sharded_{tag.replace(' ', '_')}.json"
+
+
+_FAMILIES_CHILD = r"""
+import gc, json, sys, time
+import torch
+from repro_torch.launch import train as launch_train
+for tag, argv in json.loads(sys.argv[1]):
+    t = time.perf_counter()
+    launch_train.main(argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[train-sharded] %s: %.1f s of launcher" % (
+        tag, time.perf_counter() - t), flush=True)
+"""
+
+
+def _family_runs() -> list:
+    """(arch, tag, launcher argv) of [train-sharded]'s other families, in
+    the order they run: each arch's one-rank step, then its steps on
+    SHARDED_FAMILIES' mesh."""
+    fam = SHARDED_FAMILIES
+    d, m = fam["mesh"]
+    runs = []
+    for arch, (B, S) in fam["shapes"].items():
+        base = ["--full", "--device", "cuda", "--arch", arch, "--batch",
+                str(B), "--seq", str(S), "--log-every", "1"]
+        for tag, extra in (
+                (f"{arch} one-rank", ["--steps", "1"]),
+                (f"{arch} data {d} model {m}",
+                 ["--ranks", "2", "--data", str(d), "--model", str(m),
+                  "--steps", str(fam["steps"])])):
+            runs.append((arch, tag, base + extra + [
+                "--stats-out", str(_stats_path(tag))]))
+    return runs
+
+
+def start_families():
+    """Start [train-sharded]'s other families (phase 13 of the module
+    docstring) in a child on the card, the launcher runs of
+    ``_family_runs`` in turn, its output to a log under ``build/``;
+    returns (the process, the log's path, its start)."""
+    runs = _family_runs()
+    for _, tag, _ in runs:
+        _stats_path(tag).unlink(missing_ok=True)
+    path = ROOT / "build" / "smoke_sharded_families.log"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with open(path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _FAMILIES_CHILD,
+             json.dumps([[tag, argv] for _, tag, argv in runs])],
+            env=env, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+            text=True)
+    return proc, path, time.perf_counter()
+
+
+def _wait_for_runs(started, archs, timeout: float = 900) -> None:
+    """Wait until the child ``start_families`` started has finished the
+    runs of ``archs`` (its log's line after each run)."""
+    proc, path, _ = started
+    d, m = SHARDED_FAMILIES["mesh"]
+    lines = [f"[train-sharded] {a} data {d} model {m}:" for a in archs]
+    t0 = time.perf_counter()
+    while not all(any(ln.startswith(w) for ln in path.read_text()
+                      .splitlines()) for w in lines):
+        check(proc.poll() is None, "the other families' training ended "
+                                   f"before {archs} were done")
+        check(time.perf_counter() - t0 < timeout,
+              f"the other families' {archs} not done in {timeout} s")
+        time.sleep(1.0)
+
+
+def stop_children(started: dict) -> None:
+    """Kill whatever of ``started`` still runs."""
+    for proc, *_ in started.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def train_sharded_families_phase(torch, started, predicted: dict) -> dict:
+    """[train-sharded]'s other families (phase 13 of the module
+    docstring): rwkv6-3b, zamba2-2.7b and whisper-large-v3 at full width
+    and depth, one step on one rank, then 2 steps on (data 1, model 2),
+    from the child ``start_families`` started; then the gates against
+    ``predicted``, the dry-run's cells.  Returns each scan kernel's
+    launches on the two ranks, by rank."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    proc, path, t0 = started
+    rc = proc.wait(timeout=900)
+    text = path.read_text()
+    for line in text.splitlines():
+        if line.startswith(("[train-sharded]", "step ", "done:")):
+            log(line)
+    check(rc == 0, f"the other families' training failed (exit {rc}):\n"
+                   f"{text[-3000:]}")
+    log(f"[train-sharded] other families {time.perf_counter() - t0:.1f} s "
+        f"from the child's start (beside [tp], then stablelm's runs)")
+    fam, st = SHARDED_FAMILIES, SHARDED_TRAIN
+    d, m = fam["mesh"]
+    name = f"{d}x{m}"
+    stats = {}
+    for arch, tag, _ in _family_runs():
+        stats.setdefault(arch, []).append(
+            json.loads(_stats_path(tag).read_text())["ranks"])
+        _stats_path(tag).unlink()
+    by_kernel: dict = {}
+    for arch, ((one,), ranks) in stats.items():
+        cfg = get_config(arch)
+        B, S = fam["shapes"][arch]
+        log(f"[train-sharded] {arch} at full width and depth ({cfg.n_layers} "
+            f"layers, d_model {cfg.d_model}), bf16 params and f32 moments, B "
+            f"{B} x S {S}, on two ranks sharing one card over gloo: two "
+            f"ranks on one card")
+        scan = fam["scans"].get(arch)
+        n_seg = len(ops.segments(S))
+        per_step = cfg.n_layers * n_seg if scan else 0
+        check(np.isfinite(one["loss"][0]) and np.isfinite(one["grad_norm"][0]),
+              f"{arch}: the one-rank loss or grad norm is not finite")
+        got = one["launches"].get(scan, 0) if scan else sum(
+            one["launches"].values())
+        log(f"[train-sharded] {arch} one rank: step 0 loss "
+            f"{one['loss'][0]:.6f}, grad norm {one['grad_norm'][0]:.4f}, "
+            f"{one['step_ms'][0]:.1f} ms, launches {one['launches']} (want "
+            f"{scan or 'none'} {per_step}: layers x segments = "
+            f"{cfg.n_layers} x {n_seg})")
+        check(got == per_step and (scan is None or set(one["launches"])
+                                   == {scan}),
+              f"{arch}: one-rank launches {one['launches']}, want {scan} "
+              f"{per_step}")
+        check(len(ranks) == 2, f"{arch} {name}: stats of {len(ranks)} ranks")
+        want_l = 2 * per_step * fam["steps"]     # every layer remat
+        for r in ranks:
+            check(all(np.isfinite(r["loss"])) and
+                  all(np.isfinite(r["grad_norm"])),
+                  f"{arch} {name} rank {r['rank']}: a loss or grad norm is "
+                  f"not finite: {r['loss']} {r['grad_norm']}")
+            got = r["launches"].get(scan, 0) if scan else sum(
+                r["launches"].values())
+            check(got == want_l and (scan is None or set(r["launches"])
+                                     == {scan}),
+                  f"{arch} {name} rank {r['rank']}: launches "
+                  f"{r['launches']}, want {scan} {want_l}")
+        if scan:
+            by_kernel[scan] = [r["launches"].get(scan, 0) for r in ranks]
+        r0 = ranks[0]
+        gap = abs(r0["loss"][0] - one["loss"][0]) / abs(one["loss"][0])
+        want = predicted[arch][name]["argument_size_in_bytes"]
+        alloc = r0["allocated_after_placement"]
+        log(f"[train-sharded] {arch} {name}: losses {r0['loss']}, grad norms "
+            f"{r0['grad_norm']}; step 0's loss {gap:.3e} of the one-rank "
+            f"step's (tolerance {st['loss_rtol']:g}); launches a rank "
+            f"{[r['launches'] for r in ranks]} (want {scan or 'none'} "
+            f"{want_l}: 2 x layers x segments x steps, remat); rank 0 "
+            f"allocated after placement {alloc} bytes against the dry-run's "
+            f"arguments {want} ({alloc / want - 1:+.4%}); moments a rank "
+            f"{[r['moment_bytes'] for r in ranks]}; peak allocated "
+            f"{_gib(r0['peak_allocated'])} against the dry-run's "
+            f"{_gib(predicted[arch][name]['peak_bytes_per_device'])}; ms a "
+            f"step {[round(x, 1) for x in r0['step_ms']]} (two ranks on one "
+            f"card over gloo beside other ranks: not a speed)")
+        check(gap <= st["loss_rtol"], f"{arch} {name}: step 0 loss "
+              f"{r0['loss'][0]} against the one rank's {one['loss'][0]}")
+        check(abs(alloc - want) <= st["alloc_rtol"] * want,
+              f"{arch} {name}: allocated {alloc} against the dry-run's "
+              f"{want}")
+    return by_kernel
+
+
+def sharded_phase(torch, started: dict) -> dict:
+    """Phase 13, from its children (``start_dryrun``, ``start_families``):
+    [dryrun]'s cells; stablelm-1.6b's [train-sharded] once the other
+    families' child has only ``SHARDED_FAMILIES["beside"]`` left (whose
+    ranks fit on the card beside stablelm's); then the other families'
+    gates.  Returns the scan kernels' launches in the sharded training,
+    by rank."""
+    t0 = time.perf_counter()
+    cells = dryrun_phase(torch, started["dryrun"])
+    fam = SHARDED_FAMILIES
+    _wait_for_runs(started["families"],
+                   [a for a in fam["shapes"] if a not in fam["beside"]])
+    train_sharded_phase(torch, cells)
+    by_kernel = train_sharded_families_phase(torch, started["families"],
+                                             cells)
+    log(f"[dryrun + train-sharded] phase 13 {time.perf_counter() - t0:.1f} s")
+    return by_kernel
 
 
 # ---------------------------------------------------------------------------
@@ -3548,7 +3804,8 @@ def bots_phase(torch, sizes=BOTS_SIZES, dev=None) -> None:
     rows = []
     for name in suite.WORKLOADS:
         for d in suite.DEGREES:
-            row = suite.time_workload(name, d, 3, **sizes[name])
+            row = suite.time_workload(name, d, BOTS_REPEATS,
+                                      **sizes[name])
             check("error" not in row, f"{name} degree {d}: {row.get('error')}")
             check(not cuda or "device_s" in row,
                   f"{name} degree {d}: no device time")
@@ -4078,8 +4335,16 @@ def main() -> int:
         tp_phase(torch)
         return 0
     if sys.argv[1:] == ["--dryrun"]:
+        from repro_torch.kernels import cuda_build
+        from repro_torch.kernels import linear_scan as ls
         log(f"[card] {card_line()}")
-        sharded_phase(torch)
+        cuda_build.build("linear_scan")
+        ls.build()
+        started = {"dryrun": start_dryrun(), "families": start_families()}
+        try:
+            sharded_phase(torch, started)
+        finally:
+            stop_children(started)
         return 0
     if sys.argv[1:] == ["--train-recurrent"]:
         from repro_torch.kernels import cuda_build
@@ -4147,12 +4412,22 @@ def main() -> int:
     whisper_phase(torch)
     record["launches_serve_subsystems"] = serve_subsystems_phase(torch)
     bots_phase(torch)
-    for name, count in train_recurrent_phase(torch).items():
-        scan_records[name]["launches_train"] = count
-    by_rank = tp_phase(torch)
-    record["launches_tp"] = sum(by_rank)
-    record["launches_tp_by_rank"] = by_rank
-    sharded_phase(torch)
+    # phase 13's children: the dry-run's count on the host beside phases
+    # 11-12, the other families' training beside phase 12
+    started = {"dryrun": start_dryrun()}
+    try:
+        for name, count in train_recurrent_phase(torch).items():
+            scan_records[name]["launches_train"] = count
+        started["families"] = start_families()
+        by_rank = tp_phase(torch)
+        record["launches_tp"] = sum(by_rank)
+        record["launches_tp_by_rank"] = by_rank
+        by_kernel = sharded_phase(torch, started)
+    finally:
+        stop_children(started)
+    for name, by_rank in by_kernel.items():
+        log(f"[train-sharded] {name} launches in the sharded steps by rank: "
+            f"{by_rank}")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -6,6 +6,12 @@
   a tensor-parallel training step: the row-parallel output's all-reduce
   (identity in the backward), and the identity at the replicated input
   of a column-parallel product (an all-reduce of its gradient);
+* ``gather_from_model`` — a column-parallel output made whole on every
+  rank (an all-gather on the last dim), whose gradient — each rank's
+  part of it — is reduce-scattered back to the rank's columns; and
+  ``sum_over_model`` — a sum over the ``model`` axis (an all-reduce) of a
+  partial reduction that every rank reads, such as the sum of squares of
+  a norm over a split dim, whose gradient is all-reduced too;
 * ``reduce_scatter`` / ``all_gather`` along one dim over the ``data``
   axis — ZeRO-1's gradient shard and the updated parameter's regather.
   Under NCCL they are ``reduce_scatter_tensor`` / ``all_gather_into_tensor``
@@ -115,6 +121,58 @@ def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
     if not _differentiable(x) or axis_size(mesh, "model") == 1:
         return x
     return _CopyToModel.apply(x, mesh)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_gather(x, x.dim() - 1, mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        # a copy: gloo's reduce-scatter is an all-reduce in place
+        return reduce_scatter(g.clone(memory_format=torch.contiguous_format),
+                              g.dim() - 1, ctx.mesh, "model"), None
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_reduce(x.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), ctx.mesh), None
+
+
+def gather_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's columns of ``x`` (..., C/m), concatenated on the last
+    dim in ``model`` order: the whole (..., C) on every rank.  Under
+    autograd each rank's gradient of the whole is its own part of the
+    true one (every rank goes on from the same whole), so the backward
+    sums the parts over ``model`` and keeps the rank's columns: a
+    reduce-scatter.  The identity on a ``model`` axis of 1."""
+    if axis_size(mesh, "model") == 1:
+        return x
+    if not _differentiable(x):
+        return all_gather(x, x.dim() - 1, mesh, "model")
+    return _GatherFromModel.apply(x, mesh)
+
+
+def sum_over_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the ``model`` axis, out of place: each rank's
+    partial reduction of a dim split over ``model`` (a sum of squares over
+    its columns) made the whole one.  Every rank reads the sum for its
+    own columns only, so each rank's gradient of it is a part of the true
+    one and the backward all-reduces it as well.  The identity on a
+    ``model`` axis of 1."""
+    if axis_size(mesh, "model") == 1:
+        return x
+    if not _differentiable(x):
+        return all_reduce(x.clone(), mesh)
+    return _SumOverModel.apply(x, mesh)
 
 
 def _backend(mesh, axis: str) -> str:

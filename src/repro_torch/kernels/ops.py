@@ -199,23 +199,70 @@ class _ScanGrad(torch.autograd.Function):
         name, chunked, chunk, bounds = ctx.scan
         s1, s2, s3, s4, p, *entry = ctx.saved_tensors
         plain = _SCANS[name][1][chunked]
-        g_streams, g_p = [], torch.zeros_like(p)
-        for (lo, n), s_in in zip(reversed(bounds), reversed(entry)):
+
+        def segment_grad(lo, n, s_in, g_s, src=(s1, s2, s3, s4, g_out)):
+            *streams, g_o = src
             with torch.enable_grad():
                 xs = [t[:, lo:lo + n].detach().requires_grad_()
-                      for t in (s1, s2, s3, s4)]
+                      for t in streams]
                 pd = p.detach().requires_grad_()
                 sd = s_in.detach().requires_grad_()
                 o, s = plain(*xs, pd, sd, chunk) if chunked else \
                     plain(*xs, pd, sd)
                 outs, gs = [], []
-                for t, g in ((o, g_out), (s, g_s)):
+                for t, g in ((o, g_o), (s, g_s)):
                     if g is not None:
                         outs.append(t)
                         gs.append(g if t is s else g[:, lo:lo + n])
-                *g_x, g_pi, g_s = torch.autograd.grad(
+                return torch.autograd.grad(
                     outs, xs + [pd, sd], gs, allow_unused=True,
                     materialize_grads=True)
+
+        if s1.device.type == "meta":
+            # counted, not run: every segment's recompute and gradient,
+            # the plain forms' loops, step by step or from a few steps of
+            # it (chunks in 'chunk' mode; counters.count_steps); a segment
+            # of the whole sequence samples from streams of the sample's
+            # length, whose whole-length slices are aliases as the
+            # segment's are, and whose bytes stand in for streams that
+            # exist (the sample returns them, for its peak to leave out)
+            unit = chunk if chunked else 1
+            T = s1.shape[1]
+
+            def sample(k, lo, n, s_in, g_s):
+                src = (s1, s2, s3, s4, g_out)
+                if n == T and k * unit != n:
+                    src = tuple(None if t is None else t.new_empty(
+                        (t.shape[0], k * unit) + t.shape[2:]) for t in src)
+                    segment_grad(lo, k * unit, s_in, g_s, src)
+                    return sum(t.numel() * t.element_size() for t in src
+                               if t is not None)
+                segment_grad(lo, k * unit, s_in, g_s, src)
+                return 0
+
+            # the last segment alone (the final state's gradient may be
+            # None), then every other one at once: they differ only in
+            # where they start
+            rev = list(zip(reversed(bounds), reversed(entry)))
+            for ((lo, n), s_in), times in zip(rev[:2], (1, len(rev) - 1)):
+                if n % unit:
+                    for _ in range(times):
+                        segment_grad(lo, n, s_in, g_s)
+                else:
+                    key = (name, chunked, chunk, n, n == T, g_s is None,
+                           g_out is None, s1.shape, s2.shape, p.shape,
+                           s_in.shape, s1.dtype)
+                    counters.count_steps(
+                        lambda k, a=(lo, n, s_in, g_s): sample(k, *a),
+                        n // unit, times=times, key=key)
+                g_s = torch.empty_like(s_in)
+            g_s = torch.empty_like(entry[0])
+            return (None, None, None, None,
+                    *(torch.empty_like(t) for t in (s1, s2, s3, s4)),
+                    torch.empty_like(p), g_s)
+        g_streams, g_p = [], torch.zeros_like(p)
+        for (lo, n), s_in in zip(reversed(bounds), reversed(entry)):
+            *g_x, g_pi, g_s = segment_grad(lo, n, s_in, g_s)
             g_streams.append(g_x)
             g_p = g_p + g_pi
         g_streams.reverse()

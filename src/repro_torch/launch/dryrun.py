@@ -19,9 +19,16 @@ allocated; no card is needed.  For each cell this prints/records:
     ring-link bytes, per-region attribution, the collectives by kind;
   * roofline terms (:mod:`repro_torch.core.roofline`) + dominant term.
 
-Only the dense family's step runs over a mesh; a cell of another family
-fails with ``NotImplementedError`` naming its ROADMAP item and is recorded
-as an ``ok: false`` row, as the JAX sweep records a failure.  Results
+Every family but MoE runs its step over a mesh: the dense and VLM
+decoders, whisper's encoder-decoder, rwkv6's time-mix (its WKV scan
+head-replicated) and zamba2's mamba blocks (the SSD scan on the rank's
+heads); decode cells run over the recurrent caches (``s``, ``x_prev``,
+``conv_x``, ``conv_bc``) at their specs' local shapes, and the
+``long_500k`` cells of rwkv6-3b and zamba2-2.7b replicate their batch of
+one.  A scan's gradient is counted from a few steps of its plain form
+(:func:`repro_torch.core.counters.count_steps`).  An MoE cell fails with
+``NotImplementedError`` naming its ROADMAP item and is recorded as an
+``ok: false`` row, as the JAX sweep records a failure.  Results
 append to ``experiments/dryrun_torch.jsonl`` (apart from the JAX
 package's ``experiments/dryrun.jsonl``); completed cells are skipped
 unless ``--force``.
@@ -93,8 +100,10 @@ def build_step(arch_id: str, shape: Union[str, ShapeConfig], mesh,
     """The rank-local step selected by the shape's kind, and its meta
     arguments: (fn, args, {"cfg", "shape"}).  The counterpart of the JAX
     package's ``build_lowered``: params at the local shapes of
-    ``param_shardings``; under train the ZeRO-1 moments and the batch at
-    ``batch_shardings``; under decode the cache at the local shapes of
+    ``param_shardings``; under train the ZeRO-1 moments and the batch
+    (with whisper's ``frames`` and a VLM's ``vision_embeds``) at
+    ``batch_shardings``; under decode the cache — K/V, recurrent state or
+    both, and whisper's ``enc_out`` — at the local shapes of
     ``cache_shardings``."""
     cfg = get_config(arch_id)
     shape = get_shape(shape) if isinstance(shape, str) else shape

@@ -7,7 +7,7 @@ telemetry and plan files from the autotuner.  On one rank — as the JAX
 launcher does on one device — any plan, a ``--plan`` file included, is
 replaced by ``null_plan()``: the launcher never remats.
 
-``--ranks N`` trains over N ranks (the dense family): this process is
+``--ranks N`` trains over N ranks (every family but MoE): this process is
 rank 0 and spawns the others, each runs the same loop on its blocks of a
 ``(data, model)`` mesh (``--data``/``--model``; the model degree first,
 the data degree in what is left, as ``make_host_mesh`` resolves them)
@@ -30,6 +30,11 @@ the scan kernels' gradient (:func:`repro_torch.kernels.ops.wkv` /
   # two ranks on the CPU: data 2 with ZeRO-1, or --model 2
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --dtype float32 --ranks 2 --data 2 --steps 4 --batch 4 --seq 32
+
+  # rwkv6 over two ranks at model 2 (its WKV scan head-replicated)
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --dtype float32 --arch rwkv6-3b --ranks 2 --model 2 --steps 4 \\
+      --batch 4 --seq 32
 
 The host reads the device once per logged step (the loss), and at a
 checkpoint; other steps are only enqueued, so the watchdog times the
@@ -85,7 +90,8 @@ def parse_args(argv=None):
                     help="tensor-parallel degree")
     ap.add_argument("--stats-out", default="",
                     help="write every rank's step losses, grad norms, step "
-                         "ms, moment bytes and device memory as JSON")
+                         "ms, moment bytes, kernel launches and device "
+                         "memory as JSON")
     return ap.parse_args(argv)
 
 
@@ -251,17 +257,20 @@ def train_loop(args, dev):
                       device=dev)
     watchdog = StepWatchdog()
 
+    from repro_torch import kernels
+    launched = dict(kernels.LAUNCHES)
     t_start = time.time()
     metrics = None
     for step in range(start_step, args.steps):
         batch = next(data)
+        rows_here = batch["tokens"].shape[0]   # this rank's rows
         if cfg.family == "encdec":
             batch = dict(batch, frames=torch.zeros(
-                (args.batch, cfg.enc_len, cfg.d_model), dtype=dtype,
+                (rows_here, cfg.enc_len, cfg.d_model), dtype=dtype,
                 device=dev))
         if cfg.frontend == "vision_patches":
             batch = dict(batch, vision_embeds=torch.zeros(
-                (args.batch, 8, cfg.d_model), dtype=dtype, device=dev))
+                (rows_here, 8, cfg.d_model), dtype=dtype, device=dev))
         watchdog.start()
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
@@ -287,6 +296,10 @@ def train_loop(args, dev):
             raise SystemExit(42)
     loss = float(metrics["loss"]) if metrics else float("nan")
     dt = time.time() - t_start
+    # this rank's kernel launches in its steps
+    stats["launches"] = {k: n - launched.get(k, 0)
+                         for k, n in kernels.LAUNCHES.items()
+                         if n != launched.get(k, 0)}
     if cuda:
         stats["peak_allocated"] = torch.cuda.max_memory_allocated(dev) - mem0
     if args.stats_out:

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.policy import RegionPlan
 from repro_torch.core.regions import region
+from repro_torch.distributed import comm
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Spec, TensorSpec
 
@@ -131,27 +132,47 @@ def ssd_chunked(xh, bt, ct, dt, a, s0, chunk: int = 64,
 
 def apply_mamba(cfg, p, x, plan: RegionPlan, state=None, name: str = "ssm"):
     """x: (B,T,D) -> (y, new_state). state: {conv_x, conv_bc: (B,K-1,C),
-    s: (B,H,P,N)}."""
+    s: (B,H,P,N)}.
+
+    Over a ``model`` axis that splits ``ssm_dim`` and ``ssm_heads``, the
+    rank holds its heads' columns of ``in_x``, ``in_z``, ``conv_x_*`` and
+    ``out_norm``, its heads of ``in_dt``, ``a_log``, ``dt_bias`` and
+    ``d_skip``, and its rows of ``out_proj`` (a partial sum, all-reduced
+    by the output constraint); b and c, shared by every head, come from
+    replicated leaves, and their gradient — each rank's heads' part — is
+    summed over ``model``.  The scan runs on the rank's heads only.  The
+    gated RMSNorm's mean is over the whole ``d_inner``: the ranks' sums of
+    squares are all-reduced and divided by the global width."""
     with region(name) as rpath:
         B, T, D = x.shape
         d_inner, nheads, conv_dim = dims(cfg)
         P, N = cfg.ssm_head_dim, cfg.ssm_state
+        mesh = plan.mesh
+        dl, hl = p["in_x"].shape[-1], p["a_log"].shape[0]
+        split = dl != d_inner
+        if split and dl != hl * P:
+            raise NotImplementedError(
+                f"{dl} ssm_dim columns a rank do not hold whole heads "
+                f"({hl} of {P})")
         conv_x0, conv_bc0, s_prev = _split_state(state)
-        xi = x @ p["in_x"]
+        xc = comm.copy_to_model(x, mesh) if split else x
+        xi = xc @ p["in_x"]
         bc = x @ p["in_bc"]
-        z = x @ p["in_z"]
-        dt_raw = x @ p["in_dt"]
+        z = xc @ p["in_z"]
+        dt_raw = xc @ p["in_dt"]
         xi, conv_x_state = _causal_conv(xi, p["conv_x_w"], p["conv_x_b"],
                                         conv_x0)
         bc, conv_bc_state = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"],
                                          conv_bc0)
+        if split:
+            bc = comm.copy_to_model(bc, mesh)
         bt = bc[..., :N].float()
         ct = bc[..., N:].float()
         dt = F.softplus(dt_raw.float() + p["dt_bias"])
         a = -torch.exp(p["a_log"].float())
-        xh = xi.reshape(B, T, nheads, P).float()
+        xh = xi.reshape(B, T, hl, P).float()
         s0 = (s_prev if s_prev is not None
-              else torch.zeros((B, nheads, P, N), dtype=torch.float32,
+              else torch.zeros((B, hl, P, N), dtype=torch.float32,
                                device=x.device))
         knobs = plan.config_for(rpath)
         # scan_mode (serve knob) outranks ssm_impl (offline knob); 'auto'
@@ -166,13 +187,18 @@ def apply_mamba(cfg, p, x, plan: RegionPlan, state=None, name: str = "ssm"):
         else:
             y, s_new = ssd_scan(xh, bt, ct, dt, a, s0, knobs.chunk)
         y = y + p["d_skip"].float()[:, None] * xh
-        y = y.reshape(B, T, d_inner).to(x.dtype)
+        y = y.reshape(B, T, dl).to(x.dtype)
         y = y * F.silu(z)
         yf = y.float()
-        y = (yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + 1e-6)
-             * p["out_norm"]).to(x.dtype)
+        if split:
+            ms = comm.sum_over_model(yf.square().sum(-1, keepdim=True),
+                                     mesh) / d_inner
+        else:
+            ms = yf.square().mean(-1, keepdim=True)
+        y = (yf * torch.rsqrt(ms + 1e-6) * p["out_norm"]).to(x.dtype)
         out = y @ p["out_proj"]
-        out = plan.constrain(out, rpath, ("batch", "seq", "embed"))
+        out = plan.constrain(out, rpath, ("batch", "seq", "embed"),
+                             partial=split)
         return out, {"conv_x": conv_x_state, "conv_bc": conv_bc_state,
                      "s": s_new}
 

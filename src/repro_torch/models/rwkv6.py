@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.policy import RegionPlan
 from repro_torch.core.regions import region
+from repro_torch.distributed import comm
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Spec, TensorSpec
@@ -130,25 +131,66 @@ def _group_norm(p, x, h, n, eps=1e-5):
     return out.to(x.dtype)
 
 
+def _tp_tmix(cfg, p, plan: RegionPlan) -> tuple:
+    """(this rank's first ``ssm_dim`` column, params as the rank reads
+    them) of a time-mix whose ``ssm_dim`` is split over the ``model``
+    axis, or (None, p) on a whole one.  The scan runs head-replicated
+    (the JAX package's constraint: rwkv6-3b's 40 heads do not divide a
+    model axis of 16, whose 160-column blocks cut heads in two), so every
+    replicated leaf past the gather — the group norm's affine and ``u`` —
+    gets each rank's part of its gradient, summed over ``model`` by
+    ``copy_to_model``."""
+    dl = p["wr"].shape[-1]
+    if dl == cfg.d_model:
+        return None, p
+    p = dict(p)
+    for name in ("u", "ln_scale", "ln_bias"):
+        p[name] = comm.copy_to_model(p[name], plan.mesh)
+    return comm.model_index(plan.mesh) * dl, p
+
+
 def apply_tmix(cfg, p, x, plan: RegionPlan, state=None, name: str = "tmix"):
-    """x: (B,T,D). state: None (zeros) or dict(s, x_prev)."""
+    """x: (B,T,D). state: None (zeros) or dict(s, x_prev).
+
+    Over a ``model`` axis that splits ``ssm_dim`` (:func:`_tp_tmix`):
+    r, k, v and g are this rank's columns; r, k and v are gathered whole
+    (:func:`repro_torch.distributed.comm.gather_from_model`), the decay
+    is computed whole from replicated leaves, and the scan and the group
+    norm run on every head.  The rank then keeps its columns, gates them
+    with its g and multiplies by its rows of ``wo``: a partial sum, which
+    the output constraint all-reduces.  A state whose heads are split
+    (``cache_shardings``' ``ssm_heads``) is gathered before the scan and
+    the new one cut back to the rank's heads."""
     with region(name) as rpath:
         B, T, D = x.shape
         h, n = cfg.n_rwkv_heads, cfg.rwkv_head_dim
+        mesh = plan.mesh
+        col0, p = _tp_tmix(cfg, p, plan)
         x_prev = (state["x_prev"] if state is not None
                   else torch.zeros((B, D), dtype=x.dtype, device=x.device))
         xs = _shift(x, x_prev)
         xr, xk, xv, xw, xg = _ddlerp(p, x, xs)
-        r = (xr @ p["wr"]).reshape(B, T, h, n)
-        k = (xk @ p["wk"]).reshape(B, T, h, n)
-        v = (xv @ p["wv"]).reshape(B, T, h, n)
+        if col0 is not None:
+            # the column-parallel products' inputs, whose gradients the
+            # ranks sum
+            xr, xk, xv, xg = (comm.copy_to_model(t, mesh)
+                              for t in (xr, xk, xv, xg))
+        r, k, v = (xr @ p["wr"], xk @ p["wk"], xv @ p["wv"])
         g = xg @ p["wg"]
+        if col0 is not None:
+            r, k, v = (comm.gather_from_model(t, mesh) for t in (r, k, v))
+        r, k, v = (t.reshape(B, T, h, n) for t in (r, k, v))
         logw = p["w0"] + torch.tanh(xw @ p["w_a"]) @ p["w_b"]
         w = torch.exp(-torch.exp(logw.float())).reshape(B, T, h, n)
+        if col0 is not None:
+            w = comm.copy_to_model(w, mesh)
 
         s0 = (state["s"] if state is not None
               else torch.zeros((B, h, n, n), dtype=torch.float32,
                                device=x.device))
+        hl = s0.shape[1]
+        if hl != h:
+            s0 = comm.all_gather(s0.contiguous(), 1, mesh, "model")
         knobs = plan.config_for(rpath)
         # scan_mode 'chunk' = matmul-form parallel scan (prefill-optimal);
         # anything else = the exact sequential recurrence ('auto' is
@@ -159,14 +201,23 @@ def apply_tmix(cfg, p, x, plan: RegionPlan, state=None, name: str = "tmix"):
                                      segment=knobs.chunk)
         else:
             out, s_new = wkv_scan(*args, knobs.chunk)
+        if hl != h:
+            s_new = s_new.narrow(1, comm.model_index(mesh) * hl, hl)
         out = out.reshape(B, T, D).to(x.dtype)
-        out = _group_norm(p, out, h, n) * F.silu(g)
+        out = _group_norm(p, out, h, n)
+        if col0 is not None:
+            out = out.narrow(-1, col0, g.shape[-1])
+        out = out * F.silu(g)
         y = out @ p["wo"]
-        y = plan.constrain(y, rpath, ("batch", "seq", "embed"))
+        y = plan.constrain(y, rpath, ("batch", "seq", "embed"),
+                           partial=col0 is not None)
         return y, {"s": s_new, "x_prev": x[:, -1, :]}
 
 
 def apply_cmix(cfg, p, x, plan: RegionPlan, state=None, name: str = "cmix"):
+    """Channel mix; over a ``model`` axis that splits ``ff``, ``wk`` is
+    column-parallel and ``wv`` row-parallel (its partial sum all-reduced
+    before the replicated receptance gate multiplies it)."""
     with region(name) as rpath:
         B, T, D = x.shape
         x_prev = (state["x_prev"] if state is not None
@@ -174,8 +225,14 @@ def apply_cmix(cfg, p, x, plan: RegionPlan, state=None, name: str = "cmix"):
         xs = _shift(x, x_prev)
         xk = x + (xs - x) * p["mu_k"]
         xr = x + (xs - x) * p["mu_r"]
+        split = p["wk"].shape[-1] != cfg.d_ff
+        if split:
+            xk = comm.copy_to_model(xk, plan.mesh)
         kk = torch.square(torch.relu(xk @ p["wk"]))
         vv = kk @ p["wv"]
+        if split:
+            vv = plan.constrain(vv, rpath, ("batch", "seq", "embed"),
+                                partial=True)
         rr = torch.sigmoid(xr @ p["wr"])
         y = plan.constrain(rr * vv, rpath, ("batch", "seq", "embed"))
         return y, {"x_prev": x[:, -1, :]}

@@ -153,9 +153,8 @@ def prefill(cfg, params, batch, plan: RegionPlan, max_len: int):
     site = 0
     for li in range(cfg.n_layers):
         lp = L.tree_map(lambda a: a[li], params["blocks"])
-        zero = L.zeros_from_spec(mamba2.state_spec(cfg, B, x.dtype),
-                                 x.device)
-        x, new_ssm[f"l{li}"] = _mamba_block(cfg, lp, x, plan, li, zero)
+        # from zero state (None: at the rank's local widths over a mesh)
+        x, new_ssm[f"l{li}"] = _mamba_block(cfg, lp, x, plan, li)
         if _is_site(cfg, li):
             with region(f"shared_attn{site}"):
                 h = L.apply_norm(cfg, sp["norm1"], x)

@@ -16,7 +16,7 @@
 
 Every family trains on one device (an MoE model's load-balancing aux
 loss joins the loss at ``AUX_WEIGHT``; a VLM scores only the tokens after
-its vision prefix).  The dense family also trains over a mesh of ranks,
+its vision prefix).  Every family but MoE also trains over a mesh of ranks,
 each holding its block of every leaf (``grad_shardings`` /
 ``opt_shardings``, the JAX package's ZeRO-1 layouts): the layers'
 collectives make each rank's gradient that of its block, the loss over
@@ -190,7 +190,7 @@ def make_train_step(model: Model, plan: Optional[RegionPlan] = None, *,
     ``opt_state_shardings(...)["mu"]``) on ``plan.mesh``; the step then
     runs on every rank of the mesh (the same collectives in the same
     order), on this rank's blocks: params and grads at the param specs'
-    local shapes, moments at the moment specs'.  Dense family only."""
+    local shapes, moments at the moment specs'.  Every family but MoE."""
     grad_fn = make_grad_fn(model, plan, unroll=unroll)
     sync = None
     if grad_shardings is not None or opt_shardings is not None:

@@ -170,7 +170,7 @@ def test_train_cell_census(port_cells):
 def test_production_mesh_cells_and_the_cli(tmp_path, monkeypatch):
     """``main`` over both production meshes at reduced widths: a row for
     each stablelm shape on 16x16 and 2x16x16 (long_500k skipped: full
-    attention), a non-dense arch's rows ``ok: false`` naming its ROADMAP
+    attention), an MoE arch's rows ``ok: false`` naming its ROADMAP
     item, the done cells skipped on a second run; then ``report.py``'s
     three tables and ``hillclimb``'s diagnosis from the rows."""
     monkeypatch.setattr(dryrun, "get_config",
@@ -187,11 +187,11 @@ def test_production_mesh_cells_and_the_cli(tmp_path, monkeypatch):
     assert all(r["ok"] for r in rows)
     assert {r["chips"] for r in rows} == {256, 512}
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "rwkv6-3b", "--shape", "decode_32k", "--mesh",
-                     "single", "--out", str(out)])
+        dryrun.main(["--arch", "qwen2-moe-a2.7b", "--shape", "decode_32k",
+                     "--mesh", "single", "--out", str(out)])
     assert e.value.code == 1
     bad = json.loads(out.read_text().splitlines()[-1])
-    assert not bad["ok"] and "ROADMAP queue 1 item 20" in bad["error"]
+    assert not bad["ok"] and "ROADMAP queue 1 item 18" in bad["error"]
     assert dryrun._done_cells(str(out)) >= {
         (ARCH, "train_4k", "2x16x16", "baseline")}
 
