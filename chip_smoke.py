@@ -263,9 +263,11 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    JAX package's ``run_cell`` prints them; then the two-rank train cells
    of [train-sharded] on its (data, model) meshes; then train_4k
    of rwkv6-3b, zamba2-2.7b, internvl2-26b and whisper-large-v3 and
-   long_500k of rwkv6-3b and zamba2-2.7b on 16x16 at full width, and the
-   (data 1, model 2) train cells of [train-sharded]'s other families.
-   Gate: every cell ``ok``.
+   long_500k of rwkv6-3b and zamba2-2.7b on 16x16 at full width; the MoE
+   cells (train_4k, prefill_32k and decode_32k of qwen2-moe-a2.7b and
+   granite-moe-1b-a400m on 16x16 and 2x16x16, experts split over
+   ``model``); and the (data 1, model 2) train cells of
+   [train-sharded]'s other families.  Gate: every cell ``ok``.
    [train-sharded]: the sharded trainer through the launcher
    (``repro_torch.launch.train.main``, this process rank 0): stablelm-1.6b
    at full width and depth, bf16 params and f32 moments from
@@ -282,17 +284,20 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    phase.  The other families, in a child on the card (the launcher's
    runs in turn, its rank 0 the child) that starts before phase 12 and
    runs beside it: rwkv6-3b and zamba2-2.7b at B 1 x S 128,
-   whisper-large-v3 at B 2 x S 256, at full width and depth: one step on
-   one rank, then 2 steps on (data 1, model 2) under the train plan
-   (every layer remat).  stablelm's runs start once the child has only
-   whisper's left, and run beside them; the families' gates are read
-   after them (ms a step beside other ranks: not a speed).  Gates
-   as stablelm's (finite, step 0's loss, allocated bytes against the
-   dry-run's cell), and each rank's scan launches (``wkv_fused`` /
-   ``ssd_fused``) layers x segments a step on one rank, twice that under
-   remat (the backward recomputes each layer's forward); whisper launches
-   no kernel.  (internvl2-26b is counted in the dry-run only: its f32
-   moments alone take 159 GB.)
+   whisper-large-v3 at B 2 x S 256, granite-moe-1b-a400m at B 4 x S 512,
+   at full width and depth: one step on one rank, then 2 steps on (data
+   1, model 2) under the train plan (every layer remat).  stablelm's runs
+   start once the child has only whisper's and granite's left, and run
+   beside them; the families' gates are read after them (ms a step
+   beside other ranks: not a speed).  Gates as stablelm's (finite, step
+   0's loss, allocated bytes against the dry-run's cell), each rank's
+   scan launches (``wkv_fused`` / ``ssd_fused``) layers x segments a step
+   on one rank, twice that under remat (the backward recomputes each
+   layer's forward); whisper and granite launch no kernel; granite's
+   ranks hold 16 of its 32 experts each, and step 0's aux loss on two
+   ranks is printed beside one rank's.  (internvl2-26b and
+   qwen2-moe-a2.7b are counted in the dry-run only: their f32 moments
+   alone take 159 and 114 GB.)
 
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits;
@@ -3424,16 +3429,21 @@ SHARDED_TRAIN = dict(batch=4, seq=512, steps=2, meshes=((2, 1), (1, 2)),
 # chaotic: its step-0 loss on two ranks stood 4.4e-3 off one rank's at B
 # 2 x S 256, 8.6e-3 at B 1 x S 128, on an H100 80GB HBM3 at 700 W, and
 # 3.7e-3 in f32 at B 1 x S 128; the gate's 1e-2 wants the loss over more
-# tokens); stablelm's runs start once only `beside`'s are left, whose
+# tokens), granite-moe-1b-a400m B 4 x S 512 (16 of its 32 experts a
+# rank); stablelm's runs start once only `beside`'s are left, whose
 # ranks fit on the card beside stablelm's; [dryrun] counts train_4k
-# of `train` and long_500k of `long` on 16x16, and the (1, 2) cell of
-# each trained arch at its (B, S)
+# of `train` and long_500k of `long` on 16x16, every shape of `moe` on
+# 16x16 and 2x16x16, and the (1, 2) cell of each trained arch at its
+# (B, S)
 SHARDED_FAMILIES = dict(shapes={"rwkv6-3b": (1, 128), "zamba2-2.7b": (1, 128),
-                                "whisper-large-v3": (2, 256)},
-                        steps=2, mesh=(1, 2), beside=("whisper-large-v3",),
+                                "whisper-large-v3": (2, 256),
+                                MOE_TRAIN_ARCH: (4, 512)},
+                        steps=2, mesh=(1, 2),
+                        beside=("whisper-large-v3", MOE_TRAIN_ARCH),
                         train=("rwkv6-3b", "zamba2-2.7b", "internvl2-26b",
                                "whisper-large-v3"),
                         long=("rwkv6-3b", "zamba2-2.7b"),
+                        moe=(MOE_ARCH, MOE_TRAIN_ARCH),
                         scans={"rwkv6-3b": "wkv_fused",
                                "zamba2-2.7b": "ssd_fused"})
 
@@ -3447,6 +3457,7 @@ runs = [[arch, "--mesh", "single"],
         [arch, "--shape", "train_4k", "--mesh", "multi"]]
 runs += [[a, "--shape", "train_4k", "--mesh", "single"] for a in fam["train"]]
 runs += [[a, "--shape", "long_500k", "--mesh", "single"] for a in fam["long"]]
+runs += [[a, "--mesh", "both"] for a in fam["moe"]]
 codes = []
 for argv in runs:
     try:
@@ -3502,7 +3513,11 @@ def dryrun_phase(torch, started) -> dict:
     want.add((ARCH, "train_4k", "2x16x16"))
     want |= {(a, "train_4k", "16x16") for a in fam["train"]}
     want |= {(a, "long_500k", "16x16") for a in fam["long"]}
-    check(got["codes"] == [0] * (2 + len(fam["train"]) + len(fam["long"]))
+    want |= {(a, s, m) for a in fam["moe"]
+             for s in ("train_4k", "prefill_32k", "decode_32k")
+             for m in ("16x16", "2x16x16")}
+    runs = 2 + len(fam["train"]) + len(fam["long"]) + len(fam["moe"])
+    check(got["codes"] == [0] * runs
           and cells == want and len(rows) == len(want),
           f"dry-run cells {sorted(cells)}, exit codes {got['codes']}")
     for arch, by_mesh in got["cells"].items():
@@ -3762,6 +3777,16 @@ def train_sharded_families_phase(torch, started, predicted: dict) -> dict:
         check(abs(alloc - want) <= st["alloc_rtol"] * want,
               f"{arch} {name}: allocated {alloc} against the dry-run's "
               f"{want}")
+        if cfg.n_experts:
+            from repro_torch.models.moe import n_experts_padded
+            e = n_experts_padded(cfg)
+            held = [r["experts"] for r in ranks]
+            aux = r0["aux"][0]
+            log(f"[train-sharded] {arch} {name}: experts a rank {held} of "
+                f"{e}; step 0's aux two ranks {aux:.6f}, one rank "
+                f"{one['aux'][0]:.6f} ({aux / one['aux'][0] - 1:+.3e})")
+            check(held == [e // m] * len(ranks),
+                  f"{arch} {name}: experts a rank {held}, want {e // m}")
     return by_kernel
 
 

@@ -20,8 +20,11 @@ moves every leaf a little.
 The weights are the package's init from seed 0 (a layer-stacked
 leaf's scale divides by its layer count, so at full depth the weights
 are several times larger than their fan-in asks), or with ``--fan-in``
-drawn at each matrix's own fan-in (a stacked leaf's second dim), from a
-generator seeded the same on every rank.  ``--reduced`` takes the
+drawn at each matrix's own fan-in (a stacked leaf's second dim, an
+expert leaf's (L, E, d, f) third), from a generator seeded the same on
+every rank.  An MoE model's experts split over ``model`` (granite-moe-1b-a400m:
+16 of 32 a rank at full width), its aux loss that of the whole batch;
+both aux losses are printed.  ``--reduced`` takes the
 reduced config.  Frames and vision embeddings are zeros, as the
 launcher feeds them.  Runs on ``--device`` (``cuda`` unless asked).
 """
@@ -72,8 +75,10 @@ def _params(model, args, dev):
         if sp.init in ("zeros", "ones"):
             return torch.full(sp.shape, float(sp.init == "ones"),
                               dtype=dtype, device=dev)
-        stacked = len(sp.shape) >= 3 and sp.axes[0] == "layers"
-        fan_in = sp.shape[1] if stacked else (sp.shape[0] if sp.shape else 1)
+        # the input dim: after the layers and an expert leaf's experts
+        lead = len(sp.shape) >= 3 and sp.axes[0] == "layers"
+        lead += lead < len(sp.axes) and sp.axes[lead] == "experts"
+        fan_in = sp.shape[lead] if sp.shape else 1
         std = (0.02 * sp.scale if sp.init == "small"
                else sp.scale / math.sqrt(max(fan_in, 1)))
         x = torch.empty(sp.shape, dtype=dtype, device=dev)
@@ -119,11 +124,12 @@ def one_rank(args, dev) -> dict:
     model = _model(args)
     params = _params(model, args, dev)
     batch = {k: v.to(dev) for k, v in _batch(model, args, dev).items()}
-    (loss, _), grads = trainer.make_grad_fn(model, null_plan())(params,
-                                                                batch)
+    (loss, metrics), grads = trainer.make_grad_fn(model, null_plan())(
+        params, batch)
     norms = [float(torch.linalg.vector_norm(g.double()))
              for g in L.tree_leaves(grads)]
-    return {"loss": float(loss), "leaves": dict(zip(_names(grads), norms))}
+    return {"loss": float(loss), "aux": float(metrics["aux"]),
+            "leaves": dict(zip(_names(grads), norms))}
 
 
 def sharded(args, dev) -> dict:
@@ -152,15 +158,17 @@ def sharded(args, dev) -> dict:
     p_sh = shard_mod.param_shardings(model, plan)
     o_sh = shard_mod.opt_state_shardings(model, plan)
     sync = trainer._GradSync(model, plan, p_sh, o_sh["mu"])
-    (loss, _), grads = trainer.make_grad_fn(model, plan)(params, batch)
-    loss, _ = sync.mean_metrics(loss, {})
+    (loss, metrics), grads = trainer.make_grad_fn(model, plan)(params,
+                                                               batch)
+    loss, metrics = sync.mean_metrics(loss, metrics)
     norms = []
     for g, z, axes in zip(L.tree_leaves(grads), sync.zdims, sync.split):
         sq = sync._reduce(g, z).double().square().sum()
         for a in axes:
             sq = comm.all_reduce(sq, mesh, a)
         norms.append(float(torch.sqrt(sq)))
-    return {"loss": float(loss), "leaves": dict(zip(_names(grads), norms))}
+    return {"loss": float(loss), "aux": float(metrics["aux"]),
+            "leaves": dict(zip(_names(grads), norms))}
 
 
 def _rank_main(rank, world, port, backend, device, argv):
@@ -222,6 +230,7 @@ def main(argv=None) -> int:
         "arch": args.arch, "dtype": args.dtype, "fan_in": args.fan_in,
         "mesh": list(MESH),
         "loss": {"one": one["loss"], "two": [r["loss"] for r in ranks]},
+        "aux": {"one": one["aux"], "two": [r["aux"] for r in ranks]},
         "grad_norm": norm,
         "same_on_every_rank": all(r == two for r in ranks),
         "leaves": [{"leaf": k, "ratio": r, "one": a, "two": b}

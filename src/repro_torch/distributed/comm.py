@@ -13,7 +13,14 @@
   partial reduction that every rank reads, such as the sum of squares of
   a norm over a split dim, whose gradient is all-reduced too;
 * ``reduce_scatter`` / ``all_gather`` along one dim over the ``data``
-  axis — ZeRO-1's gradient shard and the updated parameter's regather.
+  axis — ZeRO-1's gradient shard and the updated parameter's regather;
+* over the batch axes (:func:`batch_axes`, the mesh axes the rows are
+  split over): ``mean_over_batch`` — a mean of every rank's per-row
+  means (an all-reduce), autograd-aware, for statistics of the whole
+  batch such as an MoE layer's load-balancing means — and
+  ``gather_over_batch``, every rank's tensor stacked in row order (an
+  all-gather), such as the per-expert counts of a token group that spans
+  ranks.
   Under NCCL they are ``reduce_scatter_tensor`` / ``all_gather_into_tensor``
   on the dim moved to the front; gloo has no reduce-scatter, so there it
   is an all-reduce and a ``narrow``.
@@ -50,6 +57,24 @@ def axis_index(mesh, axis: str) -> int:
 def model_index(mesh) -> int:
     """This rank's index on the mesh's ``model`` axis."""
     return axis_index(mesh, "model")
+
+
+def batch_axes(mesh, rules) -> tuple:
+    """The mesh axes of more than one rank that the ``batch`` rule of
+    ``rules`` splits the rows over, in the rule's order (outermost
+    first); () without a mesh."""
+    entry = rules.get("batch")
+    names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    return tuple(a for a in names if axis_size(mesh, a) > 1)
+
+
+def batch_index(mesh, axes: tuple) -> int:
+    """This rank's row-major index over ``axes``: the place of its rows
+    in the batch."""
+    index = 0
+    for a in axes:
+        index = index * axis_size(mesh, a) + axis_index(mesh, a)
+    return index
 
 
 def _note(kind: str, x: torch.Tensor, n: int) -> None:
@@ -173,6 +198,50 @@ def sum_over_model(x: torch.Tensor, mesh) -> torch.Tensor:
     if not _differentiable(x):
         return all_reduce(x.clone(), mesh)
     return _SumOverModel.apply(x, mesh)
+
+
+class _MeanOverBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _mean_over(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mean_over(g.clone(), ctx.mesh, ctx.axes), None, None
+
+
+def _mean_over(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    n = 1
+    for a in axes:
+        x = all_reduce(x, mesh, a)
+        n *= axis_size(mesh, a)
+    return x / n
+
+
+def mean_over_batch(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """The mean of every rank's ``x`` over the batch ``axes``, out of
+    place: each rank's mean over its own rows made the mean over the
+    whole batch (equal rows a rank).  Under autograd the backward is the
+    same mean of the ranks' gradients: each rank's loss reads the whole
+    mean, and the sharded step (``trainer._GradSync``) averages the
+    ranks' gradients, so that rank ``r``'s part of the whole mean gets
+    the sum of every rank's gradient over ``len(ranks)``, its share.
+    The identity on no axes."""
+    if not axes:
+        return x
+    if not _differentiable(x):
+        return _mean_over(x.clone(), mesh, axes)
+    return _MeanOverBatch.apply(x, mesh, axes)
+
+
+def gather_over_batch(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """Every rank's ``x`` over the batch ``axes``, stacked on a new
+    leading dim in the order of the ranks' rows (:func:`batch_index`)."""
+    x = x[None]
+    for a in reversed(axes):
+        x = all_gather(x, 0, mesh, a)
+    return x
 
 
 def _backend(mesh, axis: str) -> str:

@@ -202,18 +202,3 @@ def mesh_coords(mesh) -> dict:
     if names is None:
         return dict(getattr(mesh, "coords", {}))
     return {a: mesh.get_local_rank(a) for a in names}
-
-
-#: the ROADMAP queue 1 item that ports each family's sharded step (every
-#: other family's is ported)
-SHARDED_FAMILY_ITEMS = {"moe": 18}
-
-
-def require_sharded_family(cfg) -> None:
-    """Raise for a family whose step over a mesh is not ported: an MoE
-    layer's experts are not yet split over ranks."""
-    item = SHARDED_FAMILY_ITEMS.get(cfg.family)
-    if item is not None:
-        raise NotImplementedError(
-            f"the {cfg.family} family's sharded step is not ported "
-            f"(ROADMAP queue 1 item {item})")

@@ -19,16 +19,18 @@ allocated; no card is needed.  For each cell this prints/records:
     ring-link bytes, per-region attribution, the collectives by kind;
   * roofline terms (:mod:`repro_torch.core.roofline`) + dominant term.
 
-Every family but MoE runs its step over a mesh: the dense and VLM
-decoders, whisper's encoder-decoder, rwkv6's time-mix (its WKV scan
-head-replicated) and zamba2's mamba blocks (the SSD scan on the rank's
-heads); decode cells run over the recurrent caches (``s``, ``x_prev``,
-``conv_x``, ``conv_bc``) at their specs' local shapes, and the
-``long_500k`` cells of rwkv6-3b and zamba2-2.7b replicate their batch of
-one.  A scan's gradient is counted from a few steps of its plain form
-(:func:`repro_torch.core.counters.count_steps`).  An MoE cell fails with
-``NotImplementedError`` naming its ROADMAP item and is recorded as an
-``ok: false`` row, as the JAX sweep records a failure.  Results
+Every family runs its step over a mesh: the dense and VLM decoders,
+the MoE decoders (experts split over ``model``; decode's one token group
+spans every data rank, whose slots are offset by an all-gather of the
+lower ranks' per-expert counts), whisper's encoder-decoder, rwkv6's
+time-mix (its WKV scan head-replicated) and zamba2's mamba blocks (the
+SSD scan on the rank's heads); decode cells run over the recurrent
+caches (``s``, ``x_prev``, ``conv_x``, ``conv_bc``) at their specs'
+local shapes, and the ``long_500k`` cells of rwkv6-3b and zamba2-2.7b
+replicate their batch of one.  A scan's gradient is counted from a few
+steps of its plain form (:func:`repro_torch.core.counters.count_steps`).
+A cell that fails is recorded as an ``ok: false`` row with its error, as
+the JAX sweep records a failure.  Results
 append to ``experiments/dryrun_torch.jsonl`` (apart from the JAX
 package's ``experiments/dryrun.jsonl``); completed cells are skipped
 unless ``--force``.
@@ -109,7 +111,6 @@ def build_step(arch_id: str, shape: Union[str, ShapeConfig], mesh,
     shape = get_shape(shape) if isinstance(shape, str) else shape
     if not cfg.supports_shape(shape):
         raise ValueError(f"{arch_id} skips {shape.name} (see DESIGN.md §7)")
-    shard_mod.require_sharded_family(cfg)
     model = model_mod.build(cfg)
     if plan is None:
         plan = default_plan(mesh, shape.kind)

@@ -7,7 +7,8 @@ telemetry and plan files from the autotuner.  On one rank — as the JAX
 launcher does on one device — any plan, a ``--plan`` file included, is
 replaced by ``null_plan()``: the launcher never remats.
 
-``--ranks N`` trains over N ranks (every family but MoE): this process is
+``--ranks N`` trains over N ranks (every family; an MoE model's experts
+split over ``model``): this process is
 rank 0 and spawns the others, each runs the same loop on its blocks of a
 ``(data, model)`` mesh (``--data``/``--model``; the model degree first,
 the data degree in what is left, as ``make_host_mesh`` resolves them)
@@ -89,9 +90,10 @@ def parse_args(argv=None):
     ap.add_argument("--model", type=int, default=1,
                     help="tensor-parallel degree")
     ap.add_argument("--stats-out", default="",
-                    help="write every rank's step losses, grad norms, step "
-                         "ms, moment bytes, kernel launches and device "
-                         "memory as JSON")
+                    help="write every rank's step losses, grad norms, aux "
+                         "losses, step ms, moment bytes, kernel launches, "
+                         "device memory and an MoE model's experts a rank "
+                         "as JSON")
     return ap.parse_args(argv)
 
 
@@ -177,7 +179,6 @@ def _placed(model, args, dev, dtype):
             plan = RegionPlan.from_json(f.read(), mesh=mesh)
     else:
         plan = default_plan(mesh, "train")
-    shard_mod.require_sharded_family(model.cfg)
     p_sh = shard_mod.param_shardings(model, plan)
     o_sh = shard_mod.opt_state_shardings(model, plan)
     full = model.init(args.seed, dtype=dtype, device=dev)
@@ -231,7 +232,9 @@ def train_loop(args, dev):
              "moment_bytes": _nbytes({"mu": opt_state["mu"],
                                       "nu": opt_state["nu"]}),
              "param_bytes": _nbytes(params),
-             "loss": [], "grad_norm": [], "step_ms": []}
+             "loss": [], "grad_norm": [], "aux": [], "step_ms": []}
+    if cfg.n_experts:   # the experts of this rank's expert leaves
+        stats["experts"] = params["blocks"]["mlp"]["gate"].shape[1]
     if cuda:
         torch.cuda.synchronize(dev)
         stats["allocated_after_placement"] = (
@@ -279,6 +282,7 @@ def train_loop(args, dev):
             stats["step_ms"].append((time.perf_counter() - t0) * 1e3)
             stats["loss"].append(loss_v)
             stats["grad_norm"].append(float(metrics["grad_norm"]))
+            stats["aux"].append(float(metrics["aux"]))
         straggler = watchdog.stop(step)
         if straggler and rank == 0:
             print(f"[watchdog] step {step} flagged as straggler")

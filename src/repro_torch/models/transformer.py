@@ -51,7 +51,8 @@ def _layer_params(blocks: Any, n: int) -> list:
 
 
 def _block_loop(cfg, params, x, plan: RegionPlan, attn_apply,
-                moe_group: str = "seq", remat: bool = False):
+                moe_group: str = "seq", remat: bool = False,
+                global_aux: bool = False):
     """Shared per-layer body of every step (forward, slot decode and
     prefill, paged decode, prefill chunk): norm1 -> attention
     (``attn_apply(li, lp, h)`` returns (out, the layer's new cache)) ->
@@ -60,7 +61,8 @@ def _block_loop(cfg, params, x, plan: RegionPlan, attn_apply,
     layers, or None for a dense model).  With ``remat`` (the forward's),
     a layer whose plan entry sets ``remat`` is recomputed in the backward
     (:func:`repro_torch.core.regions.remat`) when grad mode is on; its
-    cache is None."""
+    cache is None.  ``global_aux``: the MoE aux losses of the whole batch
+    over the plan's mesh (the training forward's)."""
     layers = _layer_params(params["blocks"], cfg.n_layers)
     new_layers = {}
     aux_total = None
@@ -75,7 +77,8 @@ def _block_loop(cfg, params, x, plan: RegionPlan, attn_apply,
                 h = L.apply_norm(cfg, lp["norm2"], x)
                 if cfg.n_experts:
                     y, aux = moe_mod.apply_moe(cfg, lp["mlp"], h, plan,
-                                               group=moe_group)
+                                               group=moe_group,
+                                               global_aux=global_aux)
                 else:
                     y, aux = L.apply_mlp(cfg, lp["mlp"], h, plan), None
                 x = x + y
@@ -116,7 +119,7 @@ def forward(cfg, params, batch, plan: RegionPlan,
     x, _, aux = _block_loop(cfg, params, x, plan,
                             lambda li, lp, h: (attn.apply_attention(
                                 cfg, lp["attn"], h, plan), None),
-                            remat=True)
+                            remat=True, global_aux=True)
     x = L.apply_norm(cfg, params["final_norm"], x)
     if final_logits_only:
         x = x[:, -1:]

@@ -16,10 +16,12 @@
 
 Every family trains on one device (an MoE model's load-balancing aux
 loss joins the loss at ``AUX_WEIGHT``; a VLM scores only the tokens after
-its vision prefix).  Every family but MoE also trains over a mesh of ranks,
+its vision prefix).  Every family also trains over a mesh of ranks,
 each holding its block of every leaf (``grad_shardings`` /
 ``opt_shardings``, the JAX package's ZeRO-1 layouts): the layers'
-collectives make each rank's gradient that of its block, the loss over
+collectives make each rank's gradient that of its block (an MoE layer's
+experts split over ``model``, its aux loss that of the whole batch on
+every rank, :mod:`repro_torch.models.moe`), the loss over
 vocab-split logits is a vocab-parallel cross-entropy, each gradient is
 reduced over the batch axes — reduce-scattered over ``data`` to its
 moments' shard under ZeRO-1 — AdamW updates the shard, and the updated
@@ -190,7 +192,12 @@ def make_train_step(model: Model, plan: Optional[RegionPlan] = None, *,
     ``opt_state_shardings(...)["mu"]``) on ``plan.mesh``; the step then
     runs on every rank of the mesh (the same collectives in the same
     order), on this rank's blocks: params and grads at the param specs'
-    local shapes, moments at the moment specs'.  Every family but MoE."""
+    local shapes, moments at the moment specs'.  The rows are split
+    over the plan's batch axes; at ``microbatch`` > 1 each rank slices
+    its own rows, so a microbatch holds other rows than the JAX package's
+    slice of the global batch: the same loss and gradient for every
+    family but MoE, whose aux loss, and whose token groups where a group
+    spans rows, are taken over each microbatch's rows."""
     grad_fn = make_grad_fn(model, plan, unroll=unroll)
     sync = None
     if grad_shardings is not None or opt_shardings is not None:
@@ -249,7 +256,6 @@ class _GradSync:
                  grad_shardings, opt_shardings):
         if plan is None or plan.mesh is None:
             raise ValueError("sharded gradients need a plan with a mesh")
-        shard_mod.require_sharded_family(model.cfg)
         self.mesh = plan.mesh
         sizes = mesh_shape(self.mesh)
         if grad_shardings is None:
@@ -265,16 +271,15 @@ class _GradSync:
         self.split = [tuple(a for a in shard_mod.spec_axes(
             o if z is not None else p) if sizes.get(a, 1) > 1)
             for p, o, z in zip(pspecs, ospecs, self.zdims)]
-        batch = plan.rules.get("batch")
-        batch = (batch,) if isinstance(batch, str) else tuple(batch or ())
-        self.batch_axes = tuple(a for a in batch if sizes.get(a, 1) > 1)
+        self.batch_axes = comm.batch_axes(self.mesh, plan.rules)
         self.n_batch = 1
         for a in self.batch_axes:
             self.n_batch *= sizes[a]
 
     def mean_metrics(self, loss, metrics):
         """The loss and metrics averaged over the batch axes (each rank's
-        are its own rows' means)."""
+        are its own rows' means, an MoE model's aux loss that of the whole
+        batch on every rank)."""
         if not self.batch_axes:
             return loss, metrics
         keys = sorted(metrics)

@@ -26,13 +26,17 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import pytest
 
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import get_config, get_shape
 from repro_torch.core import roofline
+from repro_torch.core.policy import default_plan
+from repro_torch.distributed import sharding as shard_mod
 from repro_torch.launch import dryrun, hillclimb, report
+from repro_torch.models.model import build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "stablelm-1.6b"
@@ -170,9 +174,13 @@ def test_train_cell_census(port_cells):
 def test_production_mesh_cells_and_the_cli(tmp_path, monkeypatch):
     """``main`` over both production meshes at reduced widths: a row for
     each stablelm shape on 16x16 and 2x16x16 (long_500k skipped: full
-    attention), an MoE arch's rows ``ok: false`` naming its ROADMAP
-    item, the done cells skipped on a second run; then ``report.py``'s
-    three tables and ``hillclimb``'s diagnosis from the rows."""
+    attention); qwen2-moe-a2.7b's decode_32k cell at full width ``ok``,
+    4 of its 64 experts a rank, its census with two all-gathers a layer
+    (the router's columns, and the per-expert counts of the one 128-token
+    group across the 16 data ranks); a cell whose step fails to build
+    (``build_step`` made to raise) recorded ``ok: false`` with its error;
+    the done cells skipped on a second run; then ``report.py``'s three
+    tables and ``hillclimb``'s diagnosis from the rows."""
     monkeypatch.setattr(dryrun, "get_config",
                         lambda a: get_config(a).reduced())
     monkeypatch.setattr(dryrun, "get_shape", lambda s: _small(s))
@@ -186,19 +194,42 @@ def test_production_mesh_cells_and_the_cli(tmp_path, monkeypatch):
         for m in ("16x16", "2x16x16")}
     assert all(r["ok"] for r in rows)
     assert {r["chips"] for r in rows} == {256, 512}
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "qwen2-moe-a2.7b", "--shape", "decode_32k",
-                     "--mesh", "single", "--out", str(out)])
+    moe = "qwen2-moe-a2.7b"
+    with monkeypatch.context() as m:
+        m.setattr(dryrun, "get_config", get_config)
+        m.setattr(dryrun, "get_shape", get_shape)
+        with pytest.raises(SystemExit) as e:
+            dryrun.main(["--arch", moe, "--shape", "decode_32k", "--mesh",
+                         "single", "--out", str(out)])
+    assert e.value.code == 0
+    row = json.loads(out.read_text().splitlines()[-1])
+    cfg = get_config(moe)
+    assert row["ok"] and (row["arch"], row["mesh"]) == (moe, "16x16")
+    assert row["collective_census"]["all-gather"] == 2 * cfg.n_layers
+    mesh = types.SimpleNamespace(shape={"data": 16, "model": 16})
+    gate = shard_mod.param_shardings(
+        build(cfg), default_plan(mesh, "decode"))["blocks"]["mlp"]["gate"]
+    assert shard_mod.local_shape((cfg.n_layers, 64, 1, 1), gate,
+                                 mesh)[1] == 4
+
+    def broken(*a, **k):
+        raise RuntimeError("the step failed to build")
+    with monkeypatch.context() as m:
+        m.setattr(dryrun, "build_step", broken)
+        with pytest.raises(SystemExit) as e:
+            dryrun.main(["--arch", "granite-moe-1b-a400m", "--shape",
+                         "decode_32k", "--mesh", "single", "--out",
+                         str(out)])
     assert e.value.code == 1
     bad = json.loads(out.read_text().splitlines()[-1])
-    assert not bad["ok"] and "ROADMAP queue 1 item 18" in bad["error"]
+    assert not bad["ok"] and "the step failed to build" in bad["error"]
     assert dryrun._done_cells(str(out)) >= {
         (ARCH, "train_4k", "2x16x16", "baseline")}
 
     rows = report.load(str(out))
     summary = report.dryrun_summary(rows)
-    assert "counted cells: 6" in summary and "failures: 1" in summary
-    assert "cells fitting 80 GB/card (H100 SXM): 6/6" in summary
+    assert "counted cells: 7" in summary and "failures: 1" in summary
+    assert "cells fitting 80 GB/card (H100 SXM): 7/7" in summary
     assert "94 GB" in report.dryrun_summary(rows, roofline.H100_NVL)
     table = report.roofline_table(rows, "2x16x16")
     assert table.count(f"| {ARCH} |") == 3

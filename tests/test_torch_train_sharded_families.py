@@ -38,14 +38,14 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: case -> (arch, d_model (0: the reduced config's), (data, model))
-CASES = {"rwkv6_model2": ("rwkv6-3b", 0, (1, 2)),
-         "rwkv6_d48_model2": ("rwkv6-3b", 48, (1, 2)),
-         "zamba2_model2": ("zamba2-2.7b", 0, (1, 2)),
-         "internvl2_model2": ("internvl2-26b", 0, (1, 2)),
-         "internvl2_data2": ("internvl2-26b", 0, (2, 1)),
-         "whisper_model2": ("whisper-large-v3", 0, (1, 2)),
-         "whisper_data2": ("whisper-large-v3", 0, (2, 1))}
+#: case -> (arch, fields of the reduced config replaced, (data, model))
+CASES = {"rwkv6_model2": ("rwkv6-3b", {}, (1, 2)),
+         "rwkv6_d48_model2": ("rwkv6-3b", {"d_model": 48}, (1, 2)),
+         "zamba2_model2": ("zamba2-2.7b", {}, (1, 2)),
+         "internvl2_model2": ("internvl2-26b", {}, (1, 2)),
+         "internvl2_data2": ("internvl2-26b", {}, (2, 1)),
+         "whisper_model2": ("whisper-large-v3", {}, (1, 2)),
+         "whisper_data2": ("whisper-large-v3", {}, (2, 1))}
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 #: lr 1e-4 and eps 1e-3: the moments' update stays far from the
 #: rounding of a small second moment
@@ -55,9 +55,11 @@ DATA = {"rwkv6-3b": dict(seq=16, batch=4, seed=3),
         "zamba2-2.7b": dict(seq=16, batch=4, seed=3),
         "internvl2-26b": dict(seq=264, batch=4, seed=3),
         "whisper-large-v3": dict(seq=16, batch=4, seed=3)}
-#: decode cases: (arch, d_model); cache of 16 rows, rows at 5 and 12
-DECODE = {"rwkv6": ("rwkv6-3b", 0), "rwkv6_d48": ("rwkv6-3b", 48),
-          "zamba2": ("zamba2-2.7b", 0)}
+#: decode cases: (arch, fields replaced); cache of 16 rows, rows at 5
+#: and 12
+DECODE = {"rwkv6": ("rwkv6-3b", {}),
+          "rwkv6_d48": ("rwkv6-3b", {"d_model": 48}),
+          "zamba2": ("zamba2-2.7b", {})}
 
 _COMMON = r"""
 import dataclasses, json, os, sys
@@ -87,13 +89,15 @@ def flat(tree, prefix=""):
     return out
 
 
-def config(get_config, arch, d_model):
-    cfg = get_config(arch).reduced()
-    return dataclasses.replace(cfg, d_model=d_model) if d_model else cfg
+def config(get_config, arch, fields):
+    return dataclasses.replace(get_config(arch).reduced(), **fields)
 
 
-def cfg_tag(arch, d_model):
-    return f"{arch}_{d_model}"
+def cfg_tag(arch, fields):
+    return "_".join([arch] + [f"{k}{v}" for k, v in sorted(fields.items())])
+
+
+METRICS = ("loss", "grad_norm", "ce", "aux")
 
 
 def extras(cfg, batch, step):
@@ -108,6 +112,10 @@ def extras(cfg, batch, step):
             (batch, 8, cfg.d_model)).astype(np.float32)
     return out
 """
+
+#: the children's helpers, for this module's own use
+_CHILD: dict = {}
+exec(_COMMON, _CHILD)
 
 _JAX_CHILD = r"""
 import os
@@ -129,11 +137,11 @@ d, cases, opt, data = (sys.argv[1], json.loads(sys.argv[2]),
                        json.loads(sys.argv[3]), json.loads(sys.argv[4]))
 ocfg = adamw.AdamWConfig(**opt)
 out = {"n_devices": len(jax.devices())}
-for name, (arch, d_model, (data_, model_)) in cases.items():
-    cfg = config(get_config, arch, d_model)
+for name, (arch, fields, (data_, model_)) in cases.items():
+    cfg = config(get_config, arch, fields)
     model = build(cfg)
     full = jax.tree.map(jnp.asarray, load(os.path.join(
-        d, cfg_tag(arch, d_model) + ".npz")))
+        d, cfg_tag(arch, fields) + ".npz")))
     dd = data[arch]
     dc = DataConfig(cfg.vocab_size, dd["seq"], dd["batch"], seed=dd["seed"])
     batches = [dict(batch_at(dc, s), **extras(cfg, dd["batch"], s))
@@ -157,13 +165,12 @@ for name, (arch, d_model, (data_, model_)) in cases.items():
     np.savez(os.path.join(d, f"jaxgrad_{name}.npz"),
              **{k: np.asarray(v) for k, v in flat(g0).items()})
     o = jax.device_put(adamw.init_state(full), o_sh)
-    losses, norms = [], []
+    steps = {k: [] for k in METRICS}
     for b in batches:
         p, o, m = fn(p, o, jax.device_put(b, b_sh))
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    out[name] = {"loss": losses, "grad_norm": norms,
-                 "mesh": dict(mesh.shape),
+        for k in METRICS:
+            steps[k].append(float(m[k]))
+    out[name] = {**steps, "mesh": dict(mesh.shape),
                  "batch_specs": {k: [str(e) for e in v.spec]
                                  for k, v in b_sh.items()}}
     np.savez(os.path.join(d, f"jax_{name}.npz"),
@@ -171,7 +178,9 @@ for name, (arch, d_model, (data_, model_)) in cases.items():
 print("SHJSON " + json.dumps(out))
 """
 
-_PORT_CHILD = r"""
+#: the port child's training side: rank 1's entry, the blocks of every
+#: rank reassembled, and one train case
+_PORT_TRAIN = r"""
 import os, sys, json
 import numpy as np
 import torch
@@ -210,7 +219,7 @@ def gather_full(params, specs, mesh, shard_mod):
     return {k: v.numpy() for k, v in full.items()}
 
 
-def train_case(d, arch, d_model, dims, opt, dd):
+def train_case(d, arch, fields, dims, opt, dd):
     from repro_torch.configs.registry import get_config
     from repro_torch.core.policy import default_plan, null_plan
     from repro_torch.data.pipeline import DataConfig, batch_at
@@ -220,10 +229,10 @@ def train_case(d, arch, d_model, dims, opt, dd):
     from repro_torch.models.model import build, params_from_numpy
     from repro_torch.optim import adamw
     from repro_torch.train import elastic, trainer
-    cfg = config(get_config, arch, d_model)
+    cfg = config(get_config, arch, fields)
     model = build(cfg)
     full = params_from_numpy(load(os.path.join(
-        d, cfg_tag(arch, d_model) + ".npz")), device="cpu")
+        d, cfg_tag(arch, fields) + ".npz")), device="cpu")
     dc = DataConfig(cfg.vocab_size, dd["seq"], dd["batch"], seed=dd["seed"])
     batches = []
     for s in range(2):
@@ -236,7 +245,7 @@ def train_case(d, arch, d_model, dims, opt, dd):
     step1 = trainer.make_train_step(model, null_plan(), opt_cfg=ocfg,
                                     schedule_total=2)
     _, _, m = step1(p1, adamw.init_state(p1), batches[0])
-    one = {"loss": [m["loss"].item()], "grad_norm": [m["grad_norm"].item()]}
+    one = {k: [m[k].item()] for k in METRICS}
     mesh = make_host_mesh(data=dims[0], model=dims[1])
     plan = default_plan(mesh, "train")
     p_sh = shard_mod.param_shardings(model, plan)
@@ -267,20 +276,24 @@ def train_case(d, arch, d_model, dims, opt, dd):
         o_sh["mu"])
     grads = gather_full(trainer._unflatten_like(params, g0), g_specs, mesh,
                         shard_mod)
-    losses, norms = [], []
+    steps = {k: [] for k in METRICS}
     for b in local:
         params, opt_state, m2 = step(params, opt_state, b)
-        losses.append(m2["loss"].item())
-        norms.append(m2["grad_norm"].item())
-    return ({"loss": losses, "grad_norm": norms,
-             "one": one,
+        for k in METRICS:
+            steps[k].append(m2[k].item())
+    return ({**steps, "one": one,
              "mesh": list(mesh.shape),
              "batch_specs": {k: [str(e) for e in v]
                              for k, v in b_sh.items()}},
             gather_full(params, p_sh, mesh, shard_mod), grads)
 
 
-def decode_case(arch, d_model):
+"""
+
+_PORT_FAMILIES = r"""
+
+
+def decode_case(arch, fields):
     # one decode step over the default decode plan's (1, 2) mesh against
     # the one-rank step on the full cache
     from repro_torch.configs.registry import get_config
@@ -291,7 +304,7 @@ def decode_case(arch, d_model):
     from repro_torch.models import layers as L
     from repro_torch.models.model import build
     from repro_torch.train import elastic
-    cfg = config(get_config, arch, d_model)
+    cfg = config(get_config, arch, fields)
     model = build(cfg)
     full = model.init(0, dtype=torch.float32, device="cpu")
     mesh = make_host_mesh(data=1, model=2)
@@ -330,8 +343,8 @@ def decode_case(arch, d_model):
 def run(d, cases, opt, data, decode):
     import torch.distributed as dist
     out = {}
-    for name, (arch, d_model, dims) in cases.items():
-        out[name], got, grads = train_case(d, arch, d_model, dims, opt,
+    for name, (arch, fields, dims) in cases.items():
+        out[name], got, grads = train_case(d, arch, fields, dims, opt,
                                            data[arch])
         if dist.get_rank() == 0:
             np.savez(os.path.join(d, f"port_{name}.npz"), **got)
@@ -356,6 +369,7 @@ if __name__ == "__main__":
         p.join(timeout=120)
     assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
 """
+_PORT_CHILD = _PORT_TRAIN + _PORT_FAMILIES
 
 
 def _parse(proc, name):
@@ -372,13 +386,14 @@ def _env():
     return env
 
 
-def _numpy_params(arch, d_model, seed=0):
+def _numpy_params(arch, fields, seed=0):
     """The config's params drawn with numpy from ``seed``, leaf by leaf in
     the sorted key order of the param spec (the JAX package's keys), each
     from its spec's initializer: zeros, ones, N(0, 0.02 scale) for
     'small', N(0, scale / sqrt(fan-in)) otherwise, the fan-in being a
-    layer-stacked matrix's input dim.  (Both packages' own init divides by
-    the stacked leaf's first dim, the layer count: at 2 layers its weights
+    layer-stacked matrix's input dim (an expert leaf's (L, E, d, f): d).
+    (Both packages' own init divides by the stacked leaf's first dim,
+    the layer count: at 2 layers its weights
     are several times too large, the reduced whisper's residual stream
     reaches ~1e2, and f32 reorderings of its sums move its gradients by
     ~5e-3 of a leaf's norm, in float64 too, as both packages take the
@@ -389,9 +404,7 @@ def _numpy_params(arch, d_model, seed=0):
     from repro_torch.configs.registry import get_config
     from repro_torch.models import layers as L
     from repro_torch.models.model import build
-    cfg = get_config(arch).reduced()
-    if d_model:
-        cfg = dataclasses.replace(cfg, d_model=d_model)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **fields)
     rng = np.random.default_rng(seed)
     out = {}
 
@@ -399,9 +412,10 @@ def _numpy_params(arch, d_model, seed=0):
         if sp.init in ("zeros", "ones"):
             leaf = np.full(sp.shape, float(sp.init == "ones"), np.float32)
         else:
-            stacked = len(sp.shape) >= 3 and sp.axes[0] == "layers"
-            fan_in = sp.shape[1] if stacked else (
-                sp.shape[0] if sp.shape else 1)
+            # the input dim: after the layers and an expert leaf's experts
+            lead = len(sp.shape) >= 3 and sp.axes[0] == "layers"
+            lead += lead < len(sp.axes) and sp.axes[lead] == "experts"
+            fan_in = sp.shape[lead] if sp.shape else 1
             std = (0.02 * sp.scale if sp.init == "small" else
                    sp.scale / math.sqrt(max(fan_in, 1)))
             leaf = (rng.standard_normal(sp.shape) * std).astype(np.float32)
@@ -424,9 +438,9 @@ def runs(tmp_path_factory):
     """The port child beside two JAX children, each of which compiles
     half of the cases' GSPMD steps."""
     d = str(tmp_path_factory.mktemp("sharded_families"))
-    for arch, d_model in {(a, m) for a, m, _ in CASES.values()}:
-        np.savez(os.path.join(d, f"{arch}_{d_model}.npz"),
-                 **_numpy_params(arch, d_model))
+    for arch, fields, _ in CASES.values():
+        np.savez(os.path.join(d, _CHILD["cfg_tag"](arch, fields) + ".npz"),
+                 **_numpy_params(arch, fields))
     script = os.path.join(d, "port_child.py")
     with open(script, "w") as f:
         f.write(_PORT_CHILD)
@@ -465,9 +479,10 @@ def _tol(want):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_two_steps_match_jax(runs, case):
-    """Losses and grad norms of two steps against the JAX package's GSPMD
-    steps on both ranks, whose batch leaves split as JAX's do: within
-    ``GRAD_TOL`` (each step's value at its scale).  Step 0's loss equals
+    """Losses, cross-entropies, aux losses and grad norms of two steps
+    against the JAX package's GSPMD steps on both ranks, whose batch
+    leaves split as JAX's do: within ``GRAD_TOL`` (each step's value at
+    its scale).  Step 0's loss equals
     the port's one-rank step's (rtol 1e-5), and its grad norm too (rtol
     1e-4)."""
     assert runs["jax"]["n_devices"] == 2
@@ -478,7 +493,7 @@ def test_two_steps_match_jax(runs, case):
         assert got["mesh"] == list(CASES[case][2])
         assert ({k: _trim(v) for k, v in got["batch_specs"].items()}
                 == {k: _trim(v) for k, v in want["batch_specs"].items()})
-        for key in ("loss", "grad_norm"):
+        for key in _CHILD["METRICS"]:
             for i in range(2):
                 gap = abs(got[key][i] - want[key][i])
                 assert gap <= _tol(want[key][i]), (key, i, got[key],
