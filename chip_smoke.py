@@ -19,7 +19,7 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    ``repro_torch.kernels.work``).  ``paged_attention_mq`` is held at
    stablelm-1.6b's heads (the timed config, unchanged since the kernel's
    first version), at qwen3-8b's and h2o-danube-1.8b's GQA widths (HD 128
-   and 80), at qwen2-moe-a2.7b's MHA heads (16 of 128) and at one slot of
+   and 80), at qwen2-moe-a2.7b's MHA heads (16 of 128), at one slot of
    full length at the two GQA widths, in f32 and bf16, S 1
    and 3, block_k 0 and 8, each call timed with its achieved GB/s; at the
    timed config it is also timed after a ~100 us spin (the timer's
@@ -246,13 +246,31 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    bytes half of tp 1's, the allocator's invariants, no leaked page, no
    fallback, the ``"mesh"`` result at tp 2 with 2 devices and the pools'
    per-device bytes; tok/s of both printed, not gated (two ranks on one
-   card over gloo: not a tensor-parallel speed).  A worker that dies
-   fails the phase.  The kernel phase also times the paged kernel at the
-   tp-2 shard's shape (KVH 16, G 1, HD 64, bf16, the timed config's
-   lengths) with its bound; the kernels' record of the paged kernel
-   gains ``launches_tp`` (both ranks' launches in the bf16 tp-2 serves).
-   Phase 13's two children (the dry-run's, from phase 11 on, and the
-   other families' sharded training on the card) run beside this phase.
+   card over gloo: not a tensor-parallel speed).  Then granite-moe-1b-a400m
+   at full width and depth (24 layers, d_model 1024, 16 heads over 8 kv
+   heads x 64, 32 experts top-8) over two ranks of its own, the same
+   serves and gates at spec_depth 0 only (the engine pins an MoE model's
+   depth to 0), its f32 gate on weights drawn at each matrix's fan-in
+   (``fan_in_params``); at ``Model.init(seed=0)``, whose stacked scale
+   makes its full depth chaotic, the f32 tokens and logits of the two
+   degrees on the trace's first two requests are printed, not gated,
+   with how far the MoE inputs stand apart layer by layer and the first
+   route call at which their experts differ (``route_flips``: its layer,
+   the tokens flipped, how far the inputs and the routing probabilities
+   moved, and how narrow the flipped tokens' near-ties were; printed for
+   the fan-in serves too), the kernel at 4 kv heads on both ranks, and
+   each rank's params copy holding 16 of the 32 experts (rank 1's count
+   from its report).  A worker that dies fails the phase.  The kernel phase also
+   times the paged kernel at the tp-2 shard's shape (KVH 16, G 1, HD 64,
+   bf16, the timed config's lengths) with its bound, and at granite's
+   heads (KVH 8, G 2, HD 64) and its tp-2 shard's (KVH 4), each held
+   against the plain version and timed with its bound and SDPA's time
+   (PAGED_TIMED_EXTRA); the kernels' record of the paged kernel
+   gains ``launches_tp`` (both ranks' launches in the bf16 tp-2 serves of
+   both models; granite's alone ``launches_tp_granite``).
+   Phase 13's three children (the dry-run's and the kill and resume
+   runs, from phase 11 on, and the other families' sharded training on
+   the card) run beside this phase.
 
 13. [dryrun]: the port's dry-run (``repro_torch.launch.dryrun``) in a
    subprocess that sees no card, so that its fake process group never
@@ -297,7 +315,17 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    ranks hold 16 of its 32 experts each, and step 0's aux loss on two
    ranks is printed beside one rank's.  (internvl2-26b and
    qwen2-moe-a2.7b are counted in the dry-run only: their f32 moments
-   alone take 159 and 114 GB.)
+   alone take 159 and 114 GB.)  The launcher's kill and resume over
+   ranks, in a third child on the card that starts with the dry-run's,
+   beside phases 11-12 (RESUME): reduced stablelm-1.6b and granite-moe-1b-a400m in f32 (a
+   full-width checkpoint is 16-19 GB of npz), B 4 x S 32, 8 steps on
+   (data 2) with a checkpoint every 4 and ``--fail-at-step 6``, then 8
+   uninterrupted steps on (data 2), then ``--resume`` from copies of the
+   step-4 checkpoint on (data 2), (data 1, model 2) and one rank.
+   Gates: exit code 42 with the step-4 checkpoint alone; on (data 2)
+   steps 4-7's losses, grad norms and aux losses bit for bit the
+   uninterrupted run's; on the other splits the losses within 1e-5
+   (relative); each resumed rank's moment bytes its ZeRO-1 share.
 
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits;
@@ -371,6 +399,13 @@ PAGED_SHAPES = [("stablelm-1.6b", 8, 32, 1, 64, _ragged),
                 ("internvl2-26b", 8, 8, 6, 128, _ragged),
                 ("qwen3-8b-long", 1, 8, 4, 128, _full),
                 ("h2o-danube-1.8b-long", 1, 8, 4, 80, _full)]
+# phase 12's MoE shapes, bf16 S 1 at the timed config's lengths, each
+# held against the plain version and timed with its bound and SDPA's
+# time: (record key suffix, label, KVH, G, HD) — granite-moe-1b-a400m's
+# heads (GQA 16/8) and its tp-2 shard's
+PAGED_TIMED_EXTRA = (("granite", "granite-moe-1b-a400m", 8, 2, 64),
+                     ("granite_tp2_shard", "granite-moe-1b-a400m tp-2 shard",
+                      4, 2, 64))
 # recurrent serves: prompts whose fed part (prompt[:-1]) is a multiple of
 # the chunk length 64 or at most 64 prefill through the chunk kernel, the
 # ragged ones (99, 299, 199) through the fused kernel
@@ -766,6 +801,28 @@ def kernel_phase(torch) -> dict:
         "ms_tp2_shard": ms_tp, "bound_ms_tp2_shard": bound_tp,
         "max_abs_err_tp2_shard": err_tp,
     }
+    for key, label, kvh_x, g_x, hd_x in PAGED_TIMED_EXTRA:
+        xargs = paged_inputs(torch, 13, B, 1, kvh_x, g_x, hd_x, ps, MP,
+                             lengths, torch.bfloat16)
+        got = ops.paged_attention_mq(*xargs)
+        want = ref.paged_attention_mq(*xargs)
+        live = xargs[4] > 0
+        err_x = float((got.float()[live] - want[live]).abs().max())
+        check(ref.within_tol(got.float()[live], want[live], torch.bfloat16),
+              f"paged_attention_mq at {label}'s heads disagrees: {err_x}")
+        ms_x = time_ms(torch, lambda: ops.paged_attention_mq(*xargs))
+        bound_x, by_x = paged_work(xargs[0], xargs[3], xargs[4], 1)
+        dense = dense_paged_inputs(*xargs)
+        lib_x = time_ms(torch, lambda: paged_attention_library(*dense))
+        del dense
+        record.update({f"ms_{key}": ms_x, f"bound_ms_{key}": bound_x,
+                       f"library_ms_{key}": lib_x,
+                       f"max_abs_err_{key}": err_x})
+        log(f"[kernel] paged_attention_mq {label} bf16 B={B} S=1 "
+            f"KVH={kvh_x} G={g_x} HD={hd_x} (the timed config's lengths): "
+            f"max_abs_err={err_x:.3e} kernel {ms_x:.4f} ms, bound "
+            f"{bound_x:.5f} ms ({by_x}, {bound_x / ms_x:.1%} of its rate), "
+            f"SDPA {lib_x:.4f} ms")
     log(f"[kernel] timed config {record['shape']}: kernel {ms:.4f} ms "
         f"({record['gb_per_s']:.1f} GB/s, {bound_ms / ms:.1%} of the "
         f"bound's rate; {ms_short:.4f} ms after a ~100 us spin), S=3 "
@@ -3281,131 +3338,300 @@ def _tp_serve(torch, model, params, dev, ranks, depth, grab=None,
 TP_SERVE = dict(SERVE, n_requests=8, gen=(16, 32))
 
 
-def tp_phase(torch, serve=TP_SERVE) -> list:
+# phase 12's models: (arch, the bf16 serves' spec depths); an MoE model
+# serves at depth 0 only (the engine pins it)
+TP_ARCHS = ((ARCH, (0, 2)), (MOE_TRAIN_ARCH, (0,)))
+
+
+def tp_phase(torch, serve=TP_SERVE) -> dict:
     """[tp]: phase 12 of the module docstring.  Returns the paged
     kernel's launches in the bf16 tp-2 serves, rank by rank (counted from
-    0 just before each serve)."""
+    0 just before each serve), by arch."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import LAUNCHES, ops
     from repro_torch.models.model import build
-    from repro_torch.serve.scheduler import RequestState
     from repro_torch.serve.tp import Ranks
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
+    by_arch = {}
+    for arch, depths in TP_ARCHS:
+        _free(torch)
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        model = build(cfg)
+        with Ranks(cfg, 2, dev) as ranks:   # one process group at a time
+            by_arch[arch] = _tp_arch(torch, model, ranks, dev, serve, depths)
+        log(f"[tp] {arch}: {time.perf_counter() - t_arch:.1f} s")
     _free(torch)
-    cfg = get_config(ARCH)
-    model = build(cfg)
-    n, L_ = serve["n_requests"], cfg.n_layers
-    with Ranks(cfg, 2, dev) as ranks:
-        log(f"[tp] {ARCH} at full width and depth ({L_} layers, d_model "
-            f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.resolved_head_dim}, "
-            f"vocab {cfg.vocab_size}) at tp 2 on {ranks.line()}: two ranks "
-            f"on one card")
-        check(ranks.backend == "gloo", f"backend {ranks.backend}: two "
-                                       f"ranks on one card take gloo")
-        # f32: tp 2 against tp 1 (a plain engine), both eager
-        params = model.init(0, dtype=torch.float32, device=dev)
-        toks, first = {}, {}
-        for tp in (1, 2):
-            first[tp] = []
-            t0 = time.perf_counter()
+    log(f"[tp] phase {time.perf_counter() - t_phase:.1f} s; paged kernel "
+        f"launches in the bf16 tp-2 serves by rank: {by_arch}")
+    return by_arch
+
+
+def fan_in_params(model, seed: int, dtype, dev) -> dict:
+    """``model``'s params with every matrix drawn at its own fan-in (its
+    input dim: after the layers of a stacked leaf and the experts of an
+    expert leaf; ``std = scale / sqrt(fan_in)``, a ``small`` leaf at
+    ``0.02 * scale``, ones and zeros as ``Model.init`` sets them), from
+    one generator on ``dev`` seeded with ``seed`` in the spec's leaf
+    order, so every rank that calls it draws the same weights.
+    ``Model.init`` divides a layer-stacked leaf's scale by the layer
+    count instead, which makes a full-depth model's forward chaotic."""
+    import math
+
+    import torch
+
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(sp):
+        if sp.init in ("zeros", "ones"):
+            return torch.full(sp.shape, float(sp.init == "ones"),
+                              dtype=dtype, device=dev)
+        lead = len(sp.shape) >= 3 and sp.axes[0] == "layers"
+        lead += lead < len(sp.axes) and sp.axes[lead] == "experts"
+        fan_in = sp.shape[lead] if sp.shape else 1
+        std = (0.02 * sp.scale if sp.init == "small"
+               else sp.scale / math.sqrt(max(fan_in, 1)))
+        x = torch.empty(sp.shape, dtype=dtype, device=dev)
+        return x.normal_(0.0, std, generator=gen)
+    return L.tree_map(draw, model.spec())
+
+
+@contextlib.contextmanager
+def routes_kept(calls: list):
+    """Keeps in ``calls`` each ``models.moe.route`` call of this process
+    made meanwhile: (its input, its router, its expert indices).  Rank 0
+    of a tp-2 serve is this process; its input is the whole hidden state
+    and its indices are the whole batch's (the logits are gathered
+    before the top-k), so a tp-1 and a tp-2 serve of one trace compare
+    call by call."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def kept(cfg, p, x, plan=None, global_aux=False):
+        w, idx, aux = route(cfg, p, x, plan, global_aux)
+        calls.append((x.detach().clone(), p["router"], idx.clone()))
+        return w, idx, aux
+    moe.route = kept
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def route_flips(cfg, one: list, two: list) -> dict:
+    """Where two serves' routes first part (``routes_kept`` of tp 1 in
+    ``one``, of tp 2 in ``two``): how far apart the two inputs stand
+    over the first forward's layers (the largest difference over the
+    largest input, layer by layer: every layer routes once a forward, in
+    order); the first call whose expert indices differ, its layer, the
+    tokens whose ordered top-k differ and those whose top-k set differs,
+    of all; the largest input and the largest difference there; and, from
+    tp 1's router (whole) on each input, the largest change of a routing
+    probability, the flipped tokens' widest near-tie (the smallest gap
+    between neighbours among the top k+1 probabilities) and the median
+    of that gap over all tokens.  A flip that rounding causes sits at a
+    near-tie no wider than the probabilities moved."""
+    import torch
+
+    from repro_torch.models.moe import n_experts_padded
+    k, e = cfg.top_k, n_experts_padded(cfg)
+
+    def probs(x, router):
+        logits = (x.reshape(-1, x.shape[-1]) @ router).float()
+        if e > cfg.n_experts:
+            logits[:, cfg.n_experts:] = -1e30
+        return torch.softmax(logits, dim=-1)
+    out = {"calls": [len(one), len(two)], "first_forward_input_rel_diff": [
+        float((x1 - x2).abs().max() / x1.abs().max().clamp_min(1e-30))
+        for (x1, _, _), (x2, _, _) in zip(one[:cfg.n_layers],
+                                          two[:cfg.n_layers])
+        if x1.shape == x2.shape], "first": None}
+    for c, ((x1, router, i1), (x2, _, i2)) in enumerate(zip(one, two)):
+        if i1.shape == i2.shape and torch.equal(i1, i2):
+            continue
+        i1, i2 = i1.reshape(-1, k), i2.reshape(-1, k)
+        if i1.shape != i2.shape:
+            out["first"] = {"call": c, "shapes": [list(i1.shape),
+                                                  list(i2.shape)]}
+            break
+        flip = (i1 != i2).any(-1)
+        sets = (i1.sort(-1).values != i2.sort(-1).values).any(-1)
+        p1, p2 = probs(x1, router), probs(x2, router)
+        top = p1.sort(-1, descending=True).values[:, :k + 1]
+        gap = (top[:, :-1] - top[:, 1:]).min(-1).values
+        out["first"] = {
+            "call": c, "layer": c % cfg.n_layers,
+            "tokens_flipped": int(flip.sum()), "sets_flipped":
+            int(sets.sum()), "tokens": int(flip.numel()),
+            "input_max_abs": float(x1.abs().max()),
+            "input_max_abs_diff": float((x1 - x2).abs().max()),
+            "prob_max_abs_diff": float((p1 - p2).abs().max()),
+            "flipped_widest_gap": float(gap[flip].max()),
+            "median_gap": float(gap.median())}
+        break
+    return out
+
+
+def _tp_f32(torch, model, ranks, dev, serve, params, weights: str,
+            keep_routes: bool = False) -> int:
+    """Phase 12's f32 reading of ``params`` (``weights`` says which):
+    tp 2 over ``ranks`` against tp 1 (a plain engine), both eager, every
+    request DONE.  Logs the requests whose greedy tokens are equal and
+    the first decode step's largest logit difference, and returns the
+    count; with ``keep_routes``, also where the routes first part
+    (:func:`route_flips`)."""
+    from repro_torch.serve.scheduler import RequestState
+    arch, n = model.cfg.name, serve["n_requests"]
+    toks, first, kept = {}, {}, {}
+    for tp in (1, 2):
+        first[tp], kept[tp] = [], []
+        t0 = time.perf_counter()
+        with (routes_kept(kept[tp]) if keep_routes
+              else contextlib.nullcontext()):
             eng, reqs, res = _tp_serve(torch, model, params, dev,
                                        ranks if tp == 2 else None, 0,
                                        grab=first[tp], eager=True,
                                        serve=serve)
-            check(all(r.state is RequestState.DONE for r in reqs),
-                  f"f32 tp {tp}: not all requests DONE")
-            toks[tp] = [list(r.out_tokens) for r in reqs]
-            log(f"[tp] f32 spec_depth=0 tp {tp}: {res['stats']['n_done']}/"
-                f"{n} done, {res['steps']} steps in "
-                f"{time.perf_counter() - t0:.1f} s")
-            del eng
-        same = sum(a == b for a, b in zip(toks[1], toks[2]))
-        a, b = first[1][0], first[2][0]
-        check(a.shape == b.shape, "first decode steps differ in slots")
-        diff = float((a - b).abs().max())
-        log(f"[tp] f32 tp 2 vs tp 1: greedy tokens equal for {same}/{n} "
-            f"requests; first decode step's logits ({a.shape[0]} active "
-            f"rows) max_abs_diff={diff:.3e} (max|logit|="
-            f"{float(a.abs().max()):.3f})")
-        check(same == n, "f32 greedy tokens differ between tp 2 and tp 1")
-        del params, a, b, first
-        _free(torch)
+        check(all(r.state is RequestState.DONE for r in reqs),
+              f"{arch} f32 tp {tp}: not all requests DONE")
+        toks[tp] = [list(r.out_tokens) for r in reqs]
+        log(f"[tp] {arch} f32 spec_depth=0 tp {tp}: "
+            f"{res['stats']['n_done']}/{n} done, {res['steps']} steps in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del eng
+    same = sum(a == b for a, b in zip(toks[1], toks[2]))
+    a, b = first[1][0], first[2][0]
+    check(a.shape == b.shape, "first decode steps differ in slots")
+    log(f"[tp] {arch} f32 ({weights}) tp 2 vs tp 1: greedy tokens equal "
+        f"for {same}/{n} requests; first decode step's logits "
+        f"({a.shape[0]} active rows) max_abs_diff="
+        f"{float((a - b).abs().max()):.3e} (max|logit|="
+        f"{float(a.abs().max()):.3f})")
+    if keep_routes:
+        log(f"[tp] {arch} f32 ({weights}) routes, tp 2 vs tp 1: "
+            + json.dumps(route_flips(model.cfg, kept[1], kept[2])))
+    return same
 
-        # bf16 at spec_depth 0 and 2: tp 1 (graphs), then tp 2 (eager)
-        params = model.init(0, dtype=torch.bfloat16, device=dev)
-        kvh_seen = set()
-        paged = ops.paged_attention_mq
 
-        def seen(q, *a, **k):
-            kvh_seen.add(q.shape[2])
-            return paged(q, *a, **k)
-        by_rank = [0, 0]
-        for depth in (0, 2):
-            out = {}
-            for tp in (1, 2):
-                ranks.report()                      # the worker's counts: 0
-                kvh_seen.clear()
-                before = LAUNCHES["paged_attention_mq"]
-                ops.paged_attention_mq = seen
-                try:
-                    eng, reqs, res = _tp_serve(
-                        torch, model, params, dev,
-                        ranks if tp == 2 else None, depth, serve=serve)
-                finally:
-                    ops.paged_attention_mq = paged
-                launched = LAUNCHES["paged_attention_mq"] - before
-                pool, s = eng._pool, res["stats"]
-                pool.allocator.check_invariants()
-                check(all(r.state is RequestState.DONE for r in reqs),
-                      f"bf16 tp {tp} spec {depth}: not all requests DONE")
-                check(res["health"]["fallbacks"] == 0,
-                      "safe-plan fallback ran")
-                check(res["page_leaks"] == 0 and pool.leaked_pages() == 0,
-                      "leaked pages")
-                check(launched == res["steps"] * L_,
-                      f"rank 0's kernel launches {launched} != steps "
-                      f"{res['steps']} x {L_} layers")
-                out[tp] = (s["tok_per_s"], pool.per_device_hbm_bytes())
-                line = ""
-                if tp == 2:
-                    (w,) = ranks.report()
-                    mesh = res["mesh"]
-                    check(kvh_seen == {cfg.n_kv_heads // 2} and
-                          w["kv_heads"] == cfg.n_kv_heads // 2,
-                          f"the kernel ran at kv heads {kvh_seen} on rank 0 "
-                          f"and {w['kv_heads']} on rank 1")
-                    check(w["decode_steps"] == res["steps"] and
-                          w["paged_launches"] == res["steps"] * L_,
-                          f"rank 1: {w}, rank 0's steps {res['steps']}")
-                    check(2 * pool.per_device_hbm_bytes() == out[1][1]
-                          and w["page_bytes"] == out[2][1],
-                          f"per-device pool bytes {out[2][1]} (rank 1 "
-                          f"{w['page_bytes']}) are not half of tp 1's "
-                          f"{out[1][1]}")
-                    check(mesh["tp"] == 2 and mesh["devices"] == 2 and
-                          mesh["hbm_bytes_per_device"] == out[2][1],
-                          f"mesh result {mesh}")
-                    by_rank[0] += launched
-                    by_rank[1] += w["paged_launches"]
-                    line = (f", rank 1: {w['decode_steps']} decode + "
-                            f"{w['chunk_steps']} chunk steps, "
-                            f"{w['paged_launches']} kernel launches at "
-                            f"{w['kv_heads']} kv heads; mesh {mesh}")
-                log(f"[tp] bf16 spec_depth={depth} tp {tp}: {s['n_done']}/"
-                    f"{n} done, {s['tokens']} tokens, steps={res['steps']}, "
-                    f"{s['tok_per_s']:.1f} tok/s, rank 0 kernel launches="
-                    f"{launched} at kv heads {sorted(kvh_seen)}, pool "
-                    f"{out[tp][1] / 2**20:.1f} MiB a device{line}")
-                del eng
-                _free(torch)
-            log(f"[tp] bf16 spec_depth={depth}: {out[1][0]:.1f} tok/s at "
-                f"tp 1, {out[2][0]:.1f} tok/s at tp 2 (two ranks on one "
-                f"card over gloo: not a tensor-parallel speed)")
+def _tp_arch(torch, model, ranks, dev, serve, depths) -> list:
+    """Phase 12 on one model over ``ranks``: the f32 parity serves, then
+    the bf16 serves at each of ``depths``.  Returns the paged kernel's
+    launches in the bf16 tp-2 serves, by rank."""
+    from repro_torch.kernels import LAUNCHES, ops
+    from repro_torch.models.moe import n_experts_padded
+    from repro_torch.serve.scheduler import RequestState
+    cfg = model.cfg
+    arch, n, L_ = cfg.name, serve["n_requests"], cfg.n_layers
+    experts = n_experts_padded(cfg) if cfg.n_experts else 0
+    log(f"[tp] {arch} at full width and depth ({L_} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv heads "
+        f"x {cfg.resolved_head_dim}, vocab {cfg.vocab_size}"
+        + (f", {experts} experts top-{cfg.top_k}" if experts else "")
+        + f") at tp 2 on {ranks.line()}: two ranks on one card")
+    check(ranks.backend == "gloo", f"backend {ranks.backend}: two "
+                                   f"ranks on one card take gloo")
+    # f32: tp 2 against tp 1 (a plain engine), both eager.  An MoE model
+    # is read at Model.init's weights on the trace's first two requests,
+    # not gated: its full depth is chaotic there, and the two degrees'
+    # f32 rounding flips near-tied routes (route_flips says where
+    # first); its gate draws each matrix at its own fan-in
+    # (fan_in_params), where it stays at rounding
+    if experts:
+        params = model.init(0, dtype=torch.float32, device=dev)
+        _tp_f32(torch, model, ranks, dev, dict(serve, n_requests=2),
+                params, "Model.init(seed=0), read, not gated",
+                keep_routes=True)
         del params
+        _free(torch)
+        params = fan_in_params(model, 0, torch.float32, dev)
+        weights = "drawn at each matrix's fan-in"
+    else:
+        params = model.init(0, dtype=torch.float32, device=dev)
+        weights = "Model.init(seed=0)"
+    same = _tp_f32(torch, model, ranks, dev, serve, params, weights,
+                   keep_routes=bool(experts))
+    check(same == n, f"{arch}: f32 greedy tokens differ between tp 2 and "
+                     f"tp 1")
+    del params
     _free(torch)
-    log(f"[tp] phase {time.perf_counter() - t_phase:.1f} s; paged kernel "
-        f"launches in the bf16 tp-2 serves by rank: {by_rank}")
+
+    # bf16: tp 1 (graphs), then tp 2 (eager), at each depth
+    params = model.init(0, dtype=torch.bfloat16, device=dev)
+    kvh_seen = set()
+    paged = ops.paged_attention_mq
+
+    def seen(q, *a, **k):
+        kvh_seen.add(q.shape[2])
+        return paged(q, *a, **k)
+    by_rank = [0, 0]
+    for depth in depths:
+        out = {}
+        for tp in (1, 2):
+            ranks.report()                      # the worker's counts: 0
+            kvh_seen.clear()
+            before = LAUNCHES["paged_attention_mq"]
+            ops.paged_attention_mq = seen
+            try:
+                eng, reqs, res = _tp_serve(
+                    torch, model, params, dev,
+                    ranks if tp == 2 else None, depth, serve=serve)
+            finally:
+                ops.paged_attention_mq = paged
+            launched = LAUNCHES["paged_attention_mq"] - before
+            pool, s = eng._pool, res["stats"]
+            pool.allocator.check_invariants()
+            check(all(r.state is RequestState.DONE for r in reqs),
+                  f"{arch} bf16 tp {tp} spec {depth}: not all requests DONE")
+            check(res["health"]["fallbacks"] == 0, "safe-plan fallback ran")
+            check(res["page_leaks"] == 0 and pool.leaked_pages() == 0,
+                  "leaked pages")
+            check(launched == res["steps"] * L_,
+                  f"{arch}: rank 0's kernel launches {launched} != steps "
+                  f"{res['steps']} x {L_} layers")
+            out[tp] = (s["tok_per_s"], pool.per_device_hbm_bytes())
+            line = ""
+            if tp == 2:
+                (w,) = ranks.report()
+                mesh = res["mesh"]
+                check(kvh_seen == {cfg.n_kv_heads // 2} and
+                      w["kv_heads"] == cfg.n_kv_heads // 2,
+                      f"the kernel ran at kv heads {kvh_seen} on rank 0 "
+                      f"and {w['kv_heads']} on rank 1")
+                check(w["decode_steps"] == res["steps"] and
+                      w["paged_launches"] == res["steps"] * L_,
+                      f"rank 1: {w}, rank 0's steps {res['steps']}")
+                check(2 * pool.per_device_hbm_bytes() == out[1][1]
+                      and w["page_bytes"] == out[2][1],
+                      f"per-device pool bytes {out[2][1]} (rank 1 "
+                      f"{w['page_bytes']}) are not half of tp 1's "
+                      f"{out[1][1]}")
+                check(mesh["tp"] == 2 and mesh["devices"] == 2 and
+                      mesh["hbm_bytes_per_device"] == out[2][1],
+                      f"mesh result {mesh}")
+                held = [eng._shard.experts(), w["experts"]]
+                check(held == [experts // 2] * 2,
+                      f"{arch}: experts a rank {held}, want {experts // 2}")
+                by_rank[0] += launched
+                by_rank[1] += w["paged_launches"]
+                line = (f", rank 1: {w['decode_steps']} decode + "
+                        f"{w['chunk_steps']} chunk steps, "
+                        f"{w['paged_launches']} kernel launches at "
+                        f"{w['kv_heads']} kv heads"
+                        + (f", experts a rank {held} of {experts}"
+                           if experts else "") + f"; mesh {mesh}")
+            log(f"[tp] {arch} bf16 spec_depth={depth} tp {tp}: "
+                f"{s['n_done']}/{n} done, {s['tokens']} tokens, "
+                f"steps={res['steps']}, {s['tok_per_s']:.1f} tok/s, rank 0 "
+                f"kernel launches={launched} at kv heads "
+                f"{sorted(kvh_seen)}, pool {out[tp][1] / 2**20:.1f} MiB a "
+                f"device{line}")
+            del eng
+            _free(torch)
+        log(f"[tp] {arch} bf16 spec_depth={depth}: {out[1][0]:.1f} tok/s "
+            f"at tp 1, {out[2][0]:.1f} tok/s at tp 2 (two ranks on one "
+            f"card over gloo: not a tensor-parallel speed)")
+    del params
     return by_rank
 
 
@@ -3682,6 +3908,156 @@ def _wait_for_runs(started, archs, timeout: float = 900) -> None:
         time.sleep(1.0)
 
 
+# [train-sharded]'s kill and resume: the launcher on cuda in f32 at the
+# reduced configs of stablelm and granite (a full-width checkpoint is
+# 16-19 GB of npz), B 4 x S 32, 8 steps, a checkpoint every 4; killed at
+# step 6 on (data 2), run uninterrupted on (data 2), then resumed from
+# copies of the step-4 checkpoint on each split of SPLITS
+RESUME = dict(archs=(ARCH, MOE_TRAIN_ARCH), batch=4, seq=32, steps=8,
+              every=4, fail=6, rtol=1e-5,
+              splits={"data2": ["--ranks", "2", "--data", "2"],
+                      "model2": ["--ranks", "2", "--model", "2"],
+                      "one": ["--ranks", "1"]})
+
+_RESUME_CHILD = r"""
+import json, os, shutil, sys, time
+from repro_torch.launch import train as launch_train
+root, st = sys.argv[1], json.loads(sys.argv[2])
+out = {}
+for arch in st["archs"]:
+    t = time.perf_counter()
+    base = ["--device", "cuda", "--dtype", "float32", "--arch", arch,
+            "--batch", str(st["batch"]), "--seq", str(st["seq"]),
+            "--steps", str(st["steps"]), "--ckpt-every", str(st["every"]),
+            "--log-every", "1"]
+    d = os.path.join(root, arch)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    ck = os.path.join(d, "ck")
+    rec = {}
+    try:
+        launch_train.main(base + st["splits"]["data2"] + [
+            "--ckpt-dir", ck, "--fail-at-step", str(st["fail"])])
+        rec["fail_code"] = 0
+    except SystemExit as e:
+        rec["fail_code"] = e.code
+    rec["files"] = sorted(os.listdir(ck))
+
+    def stats(argv, tag):
+        path = os.path.join(d, tag + ".json")
+        launch_train.main(argv + ["--stats-out", path])
+        with open(path) as f:
+            return json.load(f)["ranks"]
+    rec["full"] = stats(base + st["splits"]["data2"], "full")
+    for name, flags in st["splits"].items():
+        shutil.copytree(ck, ck + "_" + name)
+        rec[name] = stats(base + flags + ["--ckpt-dir", ck + "_" + name,
+                                          "--resume"], name)
+    out[arch] = rec
+    print("[train-sharded] resume %s: %.1f s of launchers" % (
+        arch, time.perf_counter() - t), flush=True)
+print("RESUME " + json.dumps(out), flush=True)
+"""
+
+
+def start_resume():
+    """Start [train-sharded]'s kill and resume (phase 13 of the module
+    docstring) in a child on the card, its output to a log under
+    ``build/``; returns (the process, the log's path, its start)."""
+    root = ROOT / "build" / "smoke_resume"
+    root.mkdir(parents=True, exist_ok=True)
+    path = ROOT / "build" / "smoke_resume.log"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with open(path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _RESUME_CHILD, str(root),
+             json.dumps(RESUME)], env=env, cwd=ROOT, stdout=f,
+            stderr=subprocess.STDOUT, text=True)
+    return proc, path, time.perf_counter()
+
+
+def _zero1_share(arch: str, data: int, model: int) -> list:
+    """Each rank's f32 moment bytes on a (data, model) split of the
+    reduced ``arch``: its blocks of mu and nu at their ZeRO-1 specs."""
+    import types
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import default_plan
+    from repro_torch.distributed import sharding as shard_mod
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build
+    model_ = build(get_config(arch).reduced())
+    shapes = [tuple(sp.shape) for sp in L.tree_leaves(model_.spec())]
+    out = []
+    for i in range(data):
+        for j in range(model):
+            mesh = types.SimpleNamespace(
+                shape={"data": data, "model": model},
+                coords={"data": i, "model": j})
+            o_sh = shard_mod.opt_state_shardings(
+                model_, default_plan(mesh, "train"))["mu"]
+            out.append(2 * 4 * sum(
+                int(np.prod(shard_mod.local_shape(shape, spec, mesh)))
+                for shape, spec in zip(shapes, L.tree_leaves(o_sh))))
+    return out
+
+
+def resume_phase(started) -> None:
+    """[train-sharded]'s kill and resume (phase 13 of the module
+    docstring), from the child ``start_resume`` started: exit code 42 and
+    the step-4 checkpoint; on (data 2) steps 4-7's losses, grad norms and
+    aux losses bit for bit the uninterrupted run's; on (data 1, model 2)
+    and on one rank the losses within RESUME's rtol; each resumed rank's
+    moment bytes its ZeRO-1 share."""
+    import shutil
+    proc, path, t0 = started
+    rc = proc.wait(timeout=900)
+    text = path.read_text()
+    for line in text.splitlines():
+        if line.startswith(("[train-sharded]", "resumed", "simulating",
+                            "done:")):
+            log(line)
+    check(rc == 0, f"the kill and resume runs failed (exit {rc}):\n"
+                   f"{text[-3000:]}")
+    got = json.loads([ln for ln in text.splitlines()
+                      if ln.startswith("RESUME ")][-1][len("RESUME "):])
+    st = RESUME
+    dims = {"data2": (2, 1), "model2": (1, 2), "one": (1, 1)}
+    for arch, rec in got.items():
+        check(rec["fail_code"] == 42 and rec["files"] == [
+            "ckpt_00000004.json", "ckpt_00000004.npz"],
+            f"{arch}: --fail-at-step {st['fail']} exit {rec['fail_code']}, "
+            f"files {rec['files']}")
+        full = rec["full"][0]
+        want = full["loss"][4:]
+        for name, ranks in ((n, rec[n]) for n in st["splits"]):
+            losses = [r["loss"] for r in ranks]
+            check(all(x == losses[0] for x in losses) and
+                  all(np.isfinite(losses[0])),
+                  f"{arch} {name}: ranks' losses {losses}")
+            gap = max(abs(a / b - 1) for a, b in zip(losses[0], want))
+            moments = [r["moment_bytes"] for r in sorted(
+                ranks, key=lambda r: r["rank"])]
+            share = _zero1_share(arch, *dims[name])
+            log(f"[train-sharded] resume {arch} reduced f32 on {name}: "
+                f"steps 4-7 losses {losses[0]} against the uninterrupted "
+                f"(data 2) run's {want}, largest relative gap {gap:.3e}; "
+                f"moment bytes a rank {moments} (ZeRO-1 share {share})")
+            if name == "data2":
+                for key in ("loss", "grad_norm", "aux"):
+                    check(ranks[0][key] == full[key][4:],
+                          f"{arch}: resumed on (data 2), {key} "
+                          f"{ranks[0][key]} != {full[key][4:]}")
+            else:
+                check(gap <= st["rtol"], f"{arch} {name}: resumed losses "
+                      f"{losses[0]} against {want}")
+            check(moments == share, f"{arch} {name}: moment bytes "
+                  f"{moments}, ZeRO-1 share {share}")
+    shutil.rmtree(ROOT / "build" / "smoke_resume", ignore_errors=True)
+    log(f"[train-sharded] kill and resume {time.perf_counter() - t0:.1f} s "
+        f"from the child's start")
+
+
 def stop_children(started: dict) -> None:
     """Kill whatever of ``started`` still runs."""
     for proc, *_ in started.values():
@@ -3791,12 +4167,13 @@ def train_sharded_families_phase(torch, started, predicted: dict) -> dict:
 
 
 def sharded_phase(torch, started: dict) -> dict:
-    """Phase 13, from its children (``start_dryrun``, ``start_families``):
-    [dryrun]'s cells; stablelm-1.6b's [train-sharded] once the other
-    families' child has only ``SHARDED_FAMILIES["beside"]`` left (whose
-    ranks fit on the card beside stablelm's); then the other families'
-    gates.  Returns the scan kernels' launches in the sharded training,
-    by rank."""
+    """Phase 13, from its children (``start_dryrun``, ``start_families``,
+    ``start_resume``): [dryrun]'s cells; stablelm-1.6b's [train-sharded]
+    once the other families' child has only
+    ``SHARDED_FAMILIES["beside"]`` left (whose ranks fit on the card
+    beside stablelm's); then the other families' gates; then the kill
+    and resume gates.  Returns the scan kernels' launches in the sharded
+    training, by rank."""
     t0 = time.perf_counter()
     cells = dryrun_phase(torch, started["dryrun"])
     fam = SHARDED_FAMILIES
@@ -3805,6 +4182,7 @@ def sharded_phase(torch, started: dict) -> dict:
     train_sharded_phase(torch, cells)
     by_kernel = train_sharded_families_phase(torch, started["families"],
                                              cells)
+    resume_phase(started["resume"])
     log(f"[dryrun + train-sharded] phase 13 {time.perf_counter() - t0:.1f} s")
     return by_kernel
 
@@ -4365,7 +4743,8 @@ def main() -> int:
         log(f"[card] {card_line()}")
         cuda_build.build("linear_scan")
         ls.build()
-        started = {"dryrun": start_dryrun(), "families": start_families()}
+        started = {"dryrun": start_dryrun(), "families": start_families(),
+                   "resume": start_resume()}
         try:
             sharded_phase(torch, started)
         finally:
@@ -4437,16 +4816,19 @@ def main() -> int:
     whisper_phase(torch)
     record["launches_serve_subsystems"] = serve_subsystems_phase(torch)
     bots_phase(torch)
-    # phase 13's children: the dry-run's count on the host beside phases
-    # 11-12, the other families' training beside phase 12
-    started = {"dryrun": start_dryrun()}
+    # phase 13's children: the dry-run's count on the host and the kill
+    # and resume runs (small, on the card) beside phases 11-12, the other
+    # families' training beside phase 12
+    started = {"dryrun": start_dryrun(), "resume": start_resume()}
     try:
         for name, count in train_recurrent_phase(torch).items():
             scan_records[name]["launches_train"] = count
         started["families"] = start_families()
-        by_rank = tp_phase(torch)
+        by_arch = tp_phase(torch)
+        by_rank = [sum(r) for r in zip(*by_arch.values())]
         record["launches_tp"] = sum(by_rank)
         record["launches_tp_by_rank"] = by_rank
+        record["launches_tp_granite"] = sum(by_arch[MOE_TRAIN_ARCH])
         by_kernel = sharded_phase(torch, started)
     finally:
         stop_children(started)

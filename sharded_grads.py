@@ -64,26 +64,11 @@ def _model(args):
 
 def _params(model, args, dev):
     import torch
-
-    from repro_torch.models import layers as L
     dtype = getattr(torch, args.dtype)
     if not args.fan_in:
         return model.init(SEED, dtype=dtype, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def draw(sp):
-        if sp.init in ("zeros", "ones"):
-            return torch.full(sp.shape, float(sp.init == "ones"),
-                              dtype=dtype, device=dev)
-        # the input dim: after the layers and an expert leaf's experts
-        lead = len(sp.shape) >= 3 and sp.axes[0] == "layers"
-        lead += lead < len(sp.axes) and sp.axes[lead] == "experts"
-        fan_in = sp.shape[lead] if sp.shape else 1
-        std = (0.02 * sp.scale if sp.init == "small"
-               else sp.scale / math.sqrt(max(fan_in, 1)))
-        x = torch.empty(sp.shape, dtype=dtype, device=dev)
-        return x.normal_(0.0, std, generator=gen)
-    return L.tree_map(draw, model.spec())
+    from chip_smoke import fan_in_params
+    return fan_in_params(model, SEED, dtype, dev)
 
 
 def _batch(model, args, dev):

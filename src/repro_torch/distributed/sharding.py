@@ -175,6 +175,28 @@ def shard_leaf(t: torch.Tensor, spec: tuple, mesh,
     return leaf_block(t, spec, mesh, coords).contiguous()
 
 
+def microbatch_rows(t: torch.Tensor, spec: tuple, mesh, coords: dict,
+                    microbatch: int = 1) -> torch.Tensor:
+    """This rank's rows of the global batch leaf ``t`` (rows on dim 0,
+    split by ``spec``) for a step that accumulates over ``microbatch``
+    slices: its local microbatch ``i`` is its block of the global
+    microbatch ``i`` (rows ``[i*B/mb, (i+1)*B/mb)``, the JAX package's
+    trainer's slice), the blocks stacked in microbatch order — so that
+    the ranks' local microbatch ``i`` together hold the JAX package's
+    microbatch ``i``.  At ``microbatch`` 1 :func:`shard_leaf`."""
+    if microbatch <= 1:
+        return shard_leaf(t, spec, mesh, coords)
+    B = t.shape[0]
+    ranks = (_split(spec[0], mesh_shape(mesh), coords)[0]
+             if spec and spec[0] is not None else 1)
+    if B % (microbatch * ranks):
+        raise ValueError(f"a batch of {B} rows does not split into "
+                         f"{microbatch} microbatches over {ranks} ranks")
+    slices = t.reshape((microbatch, B // microbatch) + tuple(t.shape[1:]))
+    blocks = shard_leaf(slices, (None,) + tuple(spec), mesh, coords)
+    return blocks.reshape((-1,) + tuple(t.shape[1:]))
+
+
 def spec_axes(spec: tuple) -> tuple:
     """The mesh axes a spec splits its leaf over, in order."""
     out = []

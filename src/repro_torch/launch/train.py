@@ -15,11 +15,18 @@ the data degree in what is left, as ``make_host_mesh`` resolves them)
 under ``default_plan(mesh, "train")`` or the ``--plan`` file, with
 ZeRO-1 moments; the backend follows ``launch.mesh.backend_for`` (gloo
 where ranks share a device).  Rank 0 prints what the one-rank launcher
-prints.  Checkpoints are written and read on one rank only.  Every family trains: the VLM and the encoder-decoder on
-zero vision embeddings and zero frames (the stubbed frontends, as the
-JAX launcher feeds them, in the params' dtype), rwkv6 and zamba2 through
-the scan kernels' gradient (:func:`repro_torch.kernels.ops.wkv` /
-``ssd``).
+prints.  Checkpoints over ranks are the one-rank format: every rank
+sends its blocks, rank 0 writes the whole state (``checkpoint.save``
+with the train state's specs), and ``--resume`` reads it leaf by leaf,
+each rank keeping its blocks (``checkpoint.restore`` with the specs, the
+moments at their ZeRO-1 blocks), so
+a checkpoint written on any split resumes on any other, one rank and
+the JAX package's launcher included; ``--fail-at-step`` ends every rank
+with exit code 42, and this process with it.  Every family trains: the
+VLM and the encoder-decoder on zero vision embeddings and zero frames
+(the stubbed frontends, as the JAX launcher feeds them, in the params'
+dtype), rwkv6 and zamba2 through the scan kernels' gradient
+(:func:`repro_torch.kernels.ops.wkv` / ``ssd``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
       --steps 50 --batch 8 --seq 128 --ckpt-dir run1
@@ -31,6 +38,14 @@ the scan kernels' gradient (:func:`repro_torch.kernels.ops.wkv` /
   # two ranks on the CPU: data 2 with ZeRO-1, or --model 2
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --dtype float32 --ranks 2 --data 2 --steps 4 --batch 4 --seq 32
+
+  # two ranks killed at step 6, resumed on the other split
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --dtype float32 --ranks 2 --data 2 --steps 8 --batch 4 --seq 32 \\
+      --ckpt-dir run2 --ckpt-every 4 --fail-at-step 6
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --dtype float32 --ranks 2 --model 2 --steps 8 --batch 4 --seq 32 \\
+      --ckpt-dir run2 --ckpt-every 4 --resume
 
   # rwkv6 over two ranks at model 2 (its WKV scan head-replicated)
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -97,13 +112,14 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+#: the exit code of a simulated node failure (``--fail-at-step``)
+FAIL_EXIT = 42
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.ranks <= 1:
         return train_loop(args, resolve_device(args.device))
-    if args.ckpt_dir or args.resume:
-        raise NotImplementedError(
-            "checkpoints are written and read on one rank only")
     import torch.distributed as dist
     from repro_torch.launch.mesh import backend_for, rank_device, start_ranks
     device = resolve_device(args.device)
@@ -114,22 +130,29 @@ def main(argv=None):
                                (backend, str(device), argv))
     dist.init_process_group(backend, store=store, rank=0,
                             world_size=args.ranks)
-    ok = False
+    ok, failed = False, None
     try:
         loss = train_loop(args, rank_device(device, 0, backend))
         ok = True
+    except SystemExit as e:
+        if e.code != FAIL_EXIT:
+            raise
+        failed = e          # every rank simulates the failure
     finally:
         dist.destroy_process_group()
         for p in procs:
-            if ok:
+            if ok or failed:
                 p.join(timeout=300)
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=30)
+    want = FAIL_EXIT if failed else 0
     bad = [(r + 1, p.exitcode) for r, p in enumerate(procs)
-           if p.exitcode != 0]
+           if p.exitcode != want]
     if bad:
         raise RuntimeError(f"training ranks failed (rank, exit code): {bad}")
+    if failed:
+        raise failed
     return loss
 
 
@@ -151,6 +174,9 @@ def _rank_main(rank: int, world: int, port: int, backend: str, device: str,
                                 world_size=world)
         train_loop(parse_args(argv), dev)
         dist.destroy_process_group()
+    except SystemExit as e:     # the simulated failure: rank 0's code
+        sys.stdout.flush()
+        os._exit(FAIL_EXIT if e.code == FAIL_EXIT else 1)
     except BaseException:
         traceback.print_exc()
         sys.stderr.flush()
@@ -158,17 +184,20 @@ def _rank_main(rank: int, world: int, port: int, backend: str, device: str,
 
 
 def _placed(model, args, dev, dtype):
-    """(params, opt_state, plan, step keywords, local batch rows) of this
-    rank: on one rank the whole state and ``null_plan()``; over ranks its
-    blocks (``elastic.reshard`` of the seeded init) under the train plan,
-    the moments at their ZeRO-1 blocks."""
+    """(params, opt_state, plan, step keywords, local batch rows, the
+    train state's specs) of this rank: on one rank the whole state,
+    ``null_plan()`` and no specs; over ranks its blocks
+    (``elastic.reshard`` of the seeded init) under the train plan, the
+    moments at their ZeRO-1 blocks, and each rank's rows of a global
+    microbatch as the JAX package's trainer slices it
+    (``sharding.microbatch_rows``)."""
     if args.ranks <= 1:
         if args.plan:   # read, as the JAX launcher does, then replaced:
             with open(args.plan) as f:
                 RegionPlan.from_json(f.read())
         params = model.init(args.seed, dtype=dtype, device=dev)
         return (params, adamw.init_state(params), null_plan(), {},
-                lambda b: b)
+                lambda b: b, None)
     from repro_torch.distributed import sharding as shard_mod
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import elastic
@@ -197,10 +226,11 @@ def _placed(model, args, dev, dtype):
                "labels": (args.batch, args.seq)})
 
     def rows(batch):
-        return {k: shard_mod.shard_leaf(v, b_specs[k], mesh, coords)
+        return {k: shard_mod.microbatch_rows(v, b_specs[k], mesh, coords,
+                                             args.microbatch)
                 for k, v in batch.items()}
     kw = dict(grad_shardings=p_sh, opt_shardings=o_sh["mu"])
-    return params, opt_state, plan, kw, rows
+    return params, opt_state, plan, kw, rows, {"params": p_sh, "opt": o_sh}
 
 
 def _map2(fn, a, b):
@@ -226,8 +256,19 @@ def train_loop(args, dev):
         cfg = cfg.reduced()
     model = model_mod.build(cfg)
     dtype = getattr(torch, args.dtype)
-    params, opt_state, plan, kw, rows = _placed(model, args, dev, dtype)
+    params, opt_state, plan, kw, rows, specs = _placed(model, args, dev,
+                                                       dtype)
     start_step = 0
+    if cuda:
+        torch.cuda.synchronize(dev)
+        placed = torch.cuda.memory_allocated(dev) - mem0
+    if args.resume and args.ckpt_dir:
+        found = _latest(args.ckpt_dir, multi)
+        if found:
+            params, opt_state, start_step = _restore(
+                args.ckpt_dir, found, params, opt_state, plan, specs)
+            if rank == 0:
+                print(f"resumed from step {start_step}")
     stats = {"rank": rank,
              "moment_bytes": _nbytes({"mu": opt_state["mu"],
                                       "nu": opt_state["nu"]}),
@@ -236,18 +277,8 @@ def train_loop(args, dev):
     if cfg.n_experts:   # the experts of this rank's expert leaves
         stats["experts"] = params["blocks"]["mlp"]["gate"].shape[1]
     if cuda:
-        torch.cuda.synchronize(dev)
-        stats["allocated_after_placement"] = (
-            torch.cuda.memory_allocated(dev) - mem0)
+        stats["allocated_after_placement"] = placed
         torch.cuda.reset_peak_memory_stats(dev)
-
-    if args.resume and args.ckpt_dir:
-        found = ckpt_mod.latest_valid(args.ckpt_dir)
-        if found:
-            state, start_step = ckpt_mod.restore(
-                args.ckpt_dir, {"params": params, "opt": opt_state})
-            params, opt_state = state["params"], state["opt"]
-            print(f"resumed from step {start_step}")
 
     opt_cfg = adamw.AdamWConfig(lr=args.lr)
     step_fn = trainer.make_train_step(
@@ -294,10 +325,12 @@ def train_loop(args, dev):
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             ckpt_mod.save(args.ckpt_dir, step + 1,
                           {"params": params, "opt": opt_state},
-                          meta={"arch": cfg.name})
+                          meta={"arch": cfg.name}, specs=specs,
+                          mesh=plan.mesh)
         if args.fail_at_step and step + 1 == args.fail_at_step:
-            print(f"simulating node failure at step {step + 1}")
-            raise SystemExit(42)
+            if rank == 0:
+                print(f"simulating node failure at step {step + 1}")
+            raise SystemExit(FAIL_EXIT)
     loss = float(metrics["loss"]) if metrics else float("nan")
     dt = time.time() - t_start
     # this rank's kernel launches in its steps
@@ -312,6 +345,29 @@ def train_loop(args, dev):
         tok = (args.steps - start_step) * args.batch * args.seq
         print(f"done: {dt:.1f}s, {tok/dt:.0f} tok/s, final loss {loss:.4f}")
     return loss
+
+
+def _latest(ckpt_dir: str, multi: bool):
+    """The newest intact checkpoint's (step, manifest), or None: rank 0's
+    choice, sent to every rank."""
+    if not multi:
+        return ckpt_mod.latest_valid(ckpt_dir)
+    import torch.distributed as dist
+    found = [ckpt_mod.latest_valid(ckpt_dir) if dist.get_rank() == 0
+             else None]
+    dist.broadcast_object_list(found, src=0)
+    return found[0]
+
+
+def _restore(ckpt_dir: str, found, params, opt_state, plan, specs):
+    """(params, opt_state, step) restored from the checkpoint ``found``
+    into this rank's state: whole on one rank; over ranks each rank's
+    blocks, each leaf read whole on the host, cut to the rank's block and
+    dropped before the next."""
+    state, step = ckpt_mod.restore(
+        ckpt_dir, {"params": params, "opt": opt_state}, manifest=found[1],
+        specs=specs, mesh=plan.mesh)
+    return state["params"], state["opt"], step
 
 
 def _write_stats(path: str, stats: dict, multi: bool) -> None:

@@ -86,9 +86,13 @@ other ranks (:mod:`repro_torch.serve.tp`).  The degree is a plan knob,
 clamped to the ranks and to a kv-head divisor; a change of degree (a
 decided switch, the safe-plan fallback's tp 1) reshards the pool and
 switches the params copy.  Steps at tp > 1 run eagerly: a gloo collective
-cannot be captured in a CUDA graph.  Not ported yet, and raising
-``NotImplementedError`` when asked for: tensor-parallel MoE (ROADMAP queue
-1 item 14).
+cannot be captured in a CUDA graph.  An MoE model shards the same way:
+each rank holds its block of the experts and of the router's columns
+(the JAX package's ``experts`` -> ``model`` rule), gathers the router's
+logits, dispatches the pairs routed to its experts and reduces the
+combine over the ranks (:mod:`repro_torch.models.moe`); its decode step
+is one flat group, and its whole-prompt prefill goes to the ranks as one
+chunk.
 """
 from __future__ import annotations
 
@@ -249,12 +253,6 @@ def draft_ngram(history: np.ndarray, depth: int, *, max_ngram: int = 3,
 #: re-advance), labelled for ``torch.profiler`` under this prefix
 SPAN_PREFIX = "serve."
 _span = torch.profiler.record_function
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item "
-        f"{item})")
 
 
 class Engine:
@@ -557,8 +555,8 @@ class Engine:
         the engine may use and to a divisor of the kv-head count
         (:func:`repro_torch.kernels.paged_attention.shard_kv_heads`), so an
         infeasible candidate class degrades to what the host can run — on
-        one device, 1.  An MoE model still above 1 after the clamp raises:
-        tensor-parallel MoE is not ported yet."""
+        one device, 1.  Every family the paged pool serves, MoE included,
+        takes the degree it resolves to."""
         want = self.cfg.tp if self.cfg.tp > 0 else (
             max(plan.config_for("layer0/attn").tp_degree, 0) or 1)
         if self._force_safe:
@@ -570,8 +568,6 @@ class Engine:
             tp -= 1
         from repro_torch.kernels.paged_attention import shard_kv_heads
         shard_kv_heads(kvh, tp)     # the centralised divisibility rule
-        if tp > 1 and getattr(self.model.cfg, "n_experts", 0):
-            raise _not_ported(f"tensor-parallel MoE (tp={tp})", 14)
         return tp
 
     # -- tensor parallelism: placement of the pool and the params ------------

@@ -254,7 +254,11 @@ class RankState:
 
     def _scatter_params(self, d: int) -> Any:
         """This rank's params copy at degree ``d``, cut by rank 0 from the
-        full params leaf by leaf."""
+        full params leaf by leaf.  An MoE model's expert leaves and
+        router columns split on the experts (padded ones included: the
+        router masks the pads by their global index after it gathers its
+        columns, :func:`repro_torch.models.moe.route`), the shared
+        experts' on ``ff``."""
         mesh = self.mesh(d)
         plan = serve_plan(RegionPlan(), mesh)
         specs = L.tree_leaves(param_shardings(self.model, plan))
@@ -267,6 +271,15 @@ class RankState:
             return None
         it = iter(mine)
         return L.tree_map(lambda _: next(it), self.model.spec())
+
+    def experts(self) -> int:
+        """The experts of the expert leaves this rank's params copy at the
+        current degree holds (``n_experts_padded / degree`` over ranks): 0
+        for a model without experts or a rank that holds no copy."""
+        params = self.params.get(self.degree)
+        if not self.model.cfg.n_experts or params is None:
+            return 0
+        return params["blocks"]["mlp"]["gate"].shape[1]
 
     def copy_page(self, old: int, new: int) -> None:
         """A copy-on-write copy of page ``old`` into ``new`` on this
@@ -362,18 +375,20 @@ class Ranks:
 
     def report(self) -> list:
         """Each worker's counts since its last report, rank by rank: the
-        paged kernel's launches, its decode and chunk steps, and its page
-        shard's bytes and kv heads."""
+        paged kernel's launches, its decode and chunk steps, its page
+        shard's bytes and kv heads, and the experts its params copy holds
+        (an MoE model's; 0 otherwise)."""
         import torch.distributed as dist
         self.channel.send(OP_REPORT)
         out = []
         for r in range(1, self.world):
-            t = torch.zeros(5, dtype=torch.int64, device=self.channel.device)
+            t = torch.zeros(6, dtype=torch.int64, device=self.channel.device)
             dist.broadcast(t, src=r)
-            launches, decode, chunk, nbytes, kvh = t.cpu().tolist()
+            launches, decode, chunk, nbytes, kvh, experts = t.cpu().tolist()
             out.append({"rank": r, "paged_launches": launches,
                         "decode_steps": decode, "chunk_steps": chunk,
-                        "page_bytes": nbytes, "kv_heads": kvh})
+                        "page_bytes": nbytes, "kv_heads": kvh,
+                        "experts": experts})
         return out
 
     def close(self, error: bool = False) -> None:
@@ -476,10 +491,11 @@ def worker_loop(model, rank: int, device: torch.device,
                          for t in L.tree_leaves(state.pages or {}))
             kvh = (L.tree_leaves(state.pages)[0].shape[2]
                    if state.pages is not None else 0)
+            experts = state.experts()
             for r in range(1, dist.get_world_size()):
                 t = torch.tensor([launches - counts["launches0"],
                                   counts["decode"], counts["chunk"],
-                                  nbytes, kvh], dtype=torch.int64)
+                                  nbytes, kvh, experts], dtype=torch.int64)
                 dist.broadcast(t.to(channel.device), src=r)
             counts.update(decode=0, chunk=0, launches0=launches)
         else:

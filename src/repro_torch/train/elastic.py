@@ -1,11 +1,13 @@
 """Elastic restart + straggler telemetry, on PyTorch.
 
-* ``reshard``: place a (logically unsharded) restored train state on the
+* ``reshard``/``block``: place a (logically unsharded) state on the
   device training resumes on — whole on one device, or, when the plan
   carries a mesh, each leaf's block for this rank (the recovery path
   after losing a node: restart with a smaller data axis, reload the last
-  checkpoint, keep training).  Data order stays exact because the
-  pipeline is a pure function of (seed, step) (data/pipeline.py).
+  checkpoint, each leaf cut to its block as it is read, the moments at
+  their ZeRO-1 blocks, and keep training).  Data order stays exact
+  because the pipeline is a pure function of (seed, step)
+  (data/pipeline.py).
 * ``StepWatchdog``: per-step walltime telemetry with a robust z-score flag —
   you cannot drop a straggler mid-step, but you can detect it, alert, and
   evict-and-resume (checkpoint + restart).
@@ -27,11 +29,12 @@ def reshard(state: Any, axes_tree: Any = None,
             plan: Optional[RegionPlan] = None,
             device: DeviceLike = None) -> Any:
     """Every leaf of ``state`` on ``device`` (``cuda`` unless named).
-    With a mesh on ``plan``, this rank's block of each leaf: its spec is
-    the plan-legal one of the leaf's logical axes (``axes_tree``, the
-    state's structure; a leaf without axes stays whole), cut at this
-    rank's mesh coordinates (``sharding.shard_leaf``).  Without one, the
-    whole leaf."""
+    With a mesh on ``plan``, this rank's block of each leaf (:func:`block`)
+    at the plan-legal spec of the leaf's logical axes (``axes_tree``, the
+    state's structure; a leaf without axes stays whole).  Without one,
+    the whole leaf.  A restored train state, whose moments sit at their
+    ZeRO-1 blocks, is cut leaf by leaf as it is read
+    (``checkpoint.restore`` with specs)."""
     dev = resolve_device(device)
     if plan is None or plan.mesh is None:
         return L.tree_map(lambda x: x.to(dev), state)
@@ -40,14 +43,22 @@ def reshard(state: Any, axes_tree: Any = None,
     def put(x, axes):
         axes = tuple(axes) if axes else (None,) * x.ndim
         spec = legal_spec(x.shape, axes, plan.rules, plan.mesh)
-        blk = shard_leaf(x, spec, plan.mesh, coords)
-        if blk.numel() < x.numel():
-            # a block split on the leading dim is a view: its own storage,
-            # so that the full leaf can be freed
-            blk = blk.clone()
-        return blk.to(dev)
+        return block(x, spec, plan.mesh, coords, dev)
 
     return _map2(put, state, axes_tree)
+
+
+def block(x: Any, spec: tuple, mesh, coords: dict,
+          device: DeviceLike = None, dtype=None) -> Any:
+    """This rank's block of the whole leaf ``x`` under ``spec`` at its
+    mesh ``coords`` (``sharding.shard_leaf``), on ``device`` in ``dtype``
+    (``x``'s unless named), in storage of its own, so that the whole leaf
+    can be freed."""
+    blk = shard_leaf(x, spec, mesh, coords)
+    if blk.numel() < x.numel():
+        # a block split on the leading dim is a view of the whole leaf
+        blk = blk.clone()
+    return blk.to(device=resolve_device(device), dtype=dtype or x.dtype)
 
 
 def _map2(fn, a: Any, b: Any) -> Any:

@@ -194,10 +194,12 @@ def make_train_step(model: Model, plan: Optional[RegionPlan] = None, *,
     order), on this rank's blocks: params and grads at the param specs'
     local shapes, moments at the moment specs'.  The rows are split
     over the plan's batch axes; at ``microbatch`` > 1 each rank slices
-    its own rows, so a microbatch holds other rows than the JAX package's
-    slice of the global batch: the same loss and gradient for every
-    family but MoE, whose aux loss, and whose token groups where a group
-    spans rows, are taken over each microbatch's rows."""
+    its own rows, which must be laid out as
+    :func:`repro_torch.distributed.sharding.microbatch_rows` lays them
+    (the launcher's): the ranks' local microbatch ``i`` is then the JAX
+    package's microbatch ``i`` of the global batch, so that an MoE
+    model's aux loss and its token groups spanning ranks are taken over
+    the same tokens."""
     grad_fn = make_grad_fn(model, plan, unroll=unroll)
     sync = None
     if grad_shardings is not None or opt_shardings is not None:

@@ -210,17 +210,18 @@ def test_page_allocator_matches_jax_under_random_ops():
 
 
 def test_features_outside_the_slice_raise(models, monkeypatch):
-    """Features not ported yet raise NotImplementedError naming their
-    ROADMAP item — never silently dropped.  (The slot pool, paged='off',
-    and the static generate() are ported: tests/test_torch_slot_serve.py;
-    the decision tree and the online loop: tests/test_torch_autotune_serve
-    .py; MoE: tests/test_torch_moe.py; telemetry:
-    tests/test_torch_telemetry.py.)  A tensor-parallel degree clamps
-    down to the ranks, as in the JAX package, and resolves without a
-    raise (served at tp 2: tests/test_torch_tp_serving.py); only an MoE
-    model above tp 1 raises.  An encoder-decoder model builds, and the
-    engine refuses to serve it with continuous batching, as the JAX
-    engine does (tests/test_torch_whisper.py)."""
+    """What the engine refuses, it refuses as the JAX engine does —
+    never silently dropped.  (The slot pool, paged='off', and the static
+    generate() are ported: tests/test_torch_slot_serve.py; the decision
+    tree and the online loop: tests/test_torch_autotune_serve.py; MoE:
+    tests/test_torch_moe.py; telemetry: tests/test_torch_telemetry.py.)
+    A tensor-parallel degree clamps down to the ranks, as in the JAX
+    package, and resolves without a raise for every family the paged
+    pool serves, MoE included (served at tp 2:
+    tests/test_torch_tp_serving.py and
+    tests/test_torch_tp_serving_moe.py).  An encoder-decoder model
+    builds, and the engine refuses to serve it with continuous batching,
+    as the JAX engine does (tests/test_torch_whisper.py)."""
     _, _, model, tparams = models
     whisper = build(get_config("whisper-large-v3").reduced())
     with pytest.raises(NotImplementedError,
@@ -236,9 +237,8 @@ def test_features_outside_the_slice_raise(models, monkeypatch):
         eng = Engine(model, tparams, device="cpu", **kw)
         assert eng.tp_for(eng.plan) == 2
     moe = build(get_config("qwen2-moe-a2.7b").reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(moe, {}, device="cpu", serve_cfg=ServeConfig(tp=2)).tp_for(
-            null_plan())
+    assert Engine(moe, {}, device="cpu", serve_cfg=ServeConfig(tp=2)).tp_for(
+        null_plan()) == 2
 
 
 @pytest.mark.parametrize("arrival", ["poisson", "burst"])

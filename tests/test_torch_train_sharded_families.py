@@ -137,7 +137,9 @@ d, cases, opt, data = (sys.argv[1], json.loads(sys.argv[2]),
                        json.loads(sys.argv[3]), json.loads(sys.argv[4]))
 ocfg = adamw.AdamWConfig(**opt)
 out = {"n_devices": len(jax.devices())}
-for name, (arch, fields, (data_, model_)) in cases.items():
+for name, (arch, fields, dims) in cases.items():
+    # (data, model), or (data, model, microbatch)
+    data_, model_, mb = (list(dims) + [1])[:3]
     cfg = config(get_config, arch, fields)
     model = build(cfg)
     full = jax.tree.map(jnp.asarray, load(os.path.join(
@@ -154,7 +156,8 @@ for name, (arch, fields, (data_, model_)) in cases.items():
     b_sh = sh.batch_shardings(plan, batches[0])
     fn = jax.jit(trainer.make_train_step(
         model, plan, opt_cfg=ocfg, schedule_total=2, grad_shardings=p_sh,
-        opt_shardings=o_sh["mu"]), in_shardings=(p_sh, o_sh, b_sh),
+        opt_shardings=o_sh["mu"], microbatch=mb),
+        in_shardings=(p_sh, o_sh, b_sh),
         out_shardings=(p_sh, o_sh, None))
     p = jax.device_put(full, p_sh)
     # step 0's gradient as GSPMD computes it under the same specs
@@ -241,9 +244,10 @@ def train_case(d, arch, fields, dims, opt, dd):
                   for k, v in extras(cfg, dd["batch"], s).items()})
         batches.append(b)
     ocfg = adamw.AdamWConfig(**opt)
+    mb = dims[2] if len(dims) > 2 else 1    # microbatches a step
     p1 = L.tree_map(torch.clone, full)
     step1 = trainer.make_train_step(model, null_plan(), opt_cfg=ocfg,
-                                    schedule_total=2)
+                                    schedule_total=2, microbatch=mb)
     _, _, m = step1(p1, adamw.init_state(p1), batches[0])
     one = {k: [m[k].item()] for k in METRICS}
     mesh = make_host_mesh(data=dims[0], model=dims[1])
@@ -261,9 +265,10 @@ def train_case(d, arch, fields, dims, opt, dd):
                  "nu": shard_mod._map2(zeros, ab, o_sh["nu"])}
     step = trainer.make_train_step(model, plan, opt_cfg=ocfg,
                                    schedule_total=2, grad_shardings=p_sh,
-                                   opt_shardings=o_sh["mu"])
+                                   opt_shardings=o_sh["mu"], microbatch=mb)
     b_sh = shard_mod.batch_shardings(plan, batches[0])
-    local = [{k: shard_mod.shard_leaf(v, b_sh[k], mesh, coords)
+    # each rank's rows as the launcher hands them out
+    local = [{k: shard_mod.microbatch_rows(v, b_sh[k], mesh, coords, mb)
               for k, v in b.items()} for b in batches]
     # step 0's gradient as the step reduces it: each rank's block of the
     # param spec, or of the moment spec where ZeRO-1 reduce-scatters it

@@ -16,7 +16,10 @@ holds both pads.  Per case, as the families' file holds them, within
 norms; the params after them; and step 0's gradient leaf by leaf
 (router, gate, up, down, shared/* and shared_gate among them: an aux
 gradient counted once a rank, or a shared gate's once a rank, shows
-there).
+there).  At (data 2, microbatch 2) (``MICRO``): granite (capacity
+factor 0.5) and stablelm, two steps' losses and the params after them
+against JAX's steps with ``microbatch=2``, each rank's rows laid out by
+``sharding.microbatch_rows`` as the launcher lays them out.
 
 Then, on the port alone: a decode step (``group='flat'``: one group of
 the 8 rows) at (1, 2) and (2, 1) — and the scatter dispatch at (2, 1) —
@@ -48,8 +51,14 @@ CASES = {"granite_model2": (GRANITE, {}, (1, 2)),
          "qwen2_model2": (QWEN2, {}, (1, 2)),
          "qwen2_pad_model2": (QWEN2, {"n_experts": 6, "pad_experts_to": 8},
                               (1, 2))}
+STABLELM = "stablelm-1.6b"
+#: microbatches over data ranks: (arch, fields, (data, model, microbatch))
+MICRO = {"granite_data2_mb2": (GRANITE, {"capacity_factor": 0.5},
+                               (2, 1, 2)),
+         "stablelm_data2_mb2": (STABLELM, {}, (2, 1, 2))}
 DATA = {GRANITE: dict(seq=16, batch=4, seed=3),
-        QWEN2: dict(seq=16, batch=4, seed=3)}
+        QWEN2: dict(seq=16, batch=4, seed=3),
+        STABLELM: dict(seq=16, batch=4, seed=3)}
 #: decode cases: (arch, fields, (data, model), moe_impl); 8 rows
 DECODE = {"einsum_model2": (GRANITE, {"capacity_factor": 0.5}, (1, 2), ""),
           "einsum_data2": (GRANITE, {"capacity_factor": 0.5}, (2, 1), ""),
@@ -223,21 +232,22 @@ def runs(tmp_path_factory):
     """The port child beside two JAX children, each of which compiles
     half of the cases' GSPMD steps."""
     d = str(tmp_path_factory.mktemp("sharded_moe"))
-    for arch, fields, _ in list(CASES.values()) + [SCATTER]:
+    cases = {**CASES, **MICRO}
+    for arch, fields, _ in list(cases.values()) + [SCATTER]:
         np.savez(os.path.join(d, fam._CHILD["cfg_tag"](arch, fields)
                               + ".npz"), **fam._numpy_params(arch, fields))
     script = os.path.join(d, "port_child.py")
     with open(script, "w") as f:
         f.write(fam._PORT_TRAIN + _PORT_MOE)
-    names = sorted(CASES)
-    halves = [{n: CASES[n] for n in names[i::2]} for i in range(2)]
+    names = sorted(cases)
+    halves = [{n: cases[n] for n in names[i::2]} for i in range(2)]
     tail = [json.dumps(fam.OPT), json.dumps(DATA)]
     procs = {f"jax{i}": subprocess.Popen(
         [sys.executable, "-c", fam._JAX_CHILD, d, json.dumps(h)] + tail,
         env=fam._env(), cwd=d, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for i, h in enumerate(halves)}
     procs["port"] = subprocess.Popen(
-        [sys.executable, script, d, json.dumps(CASES)] + tail
+        [sys.executable, script, d, json.dumps(cases)] + tail
         + [json.dumps(DECODE), json.dumps(SCATTER)], env=fam._env(), cwd=d,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     got = {name: fam._parse(p, name) for name, p in procs.items()}
@@ -296,6 +306,74 @@ def test_two_steps_match_jax(runs, case):
         cfg = _cfg(*CASES[case][:2])
         tokens = DATA[GRANITE]["batch"] * DATA[GRANITE]["seq"]
         assert runs["port"][0][case]["slot_peak"] >= moe.capacity(cfg, tokens)
+
+
+@pytest.mark.parametrize("case", sorted(MICRO))
+def test_microbatches_over_data_ranks_match_jax(runs, case):
+    """At (data 2, microbatch 2) each rank's local microbatch i is its
+    half of the JAX package's microbatch i of the global batch
+    (``sharding.microbatch_rows``, as the launcher hands the rows out):
+    two steps' losses within 1e-5 (relative) of the JAX package's GSPMD
+    steps with ``microbatch=2``, their aux losses, cross-entropies and
+    grad norms within ``GRAD_TOL``, and every param after them within
+    ``GRAD_TOL``; step 0's loss equals the port's one-rank step's at
+    microbatch 2.  granite's microbatch of 32 tokens is one group across
+    both ranks at capacity factor 0.5 (pairs overflow), so a microbatch
+    of other rows would route, drop and balance other tokens: with each
+    rank slicing microbatches out of its own contiguous rows, step 0's
+    loss stands 2.6e-4 (relative) off JAX's.  stablelm's loss is the
+    same for any split of the rows."""
+    want = runs["jax"][case]
+    assert want["mesh"] == {"data": 2, "model": 1}
+    for rank in runs["port"]:
+        got = rank[case]
+        assert got["mesh"] == [2, 1]
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        for key in fam._CHILD["METRICS"]:
+            for i in range(2):
+                gap = abs(got[key][i] - want[key][i])
+                assert gap <= fam._tol(want[key][i]), (key, i, got[key],
+                                                       want[key])
+        np.testing.assert_allclose(got["loss"][0], got["one"]["loss"][0],
+                                   rtol=1e-5)
+    if MICRO[case][0] == GRANITE:
+        from repro_torch.models import moe
+        cfg = _cfg(*MICRO[case][:2])
+        tokens = DATA[GRANITE]["batch"] * DATA[GRANITE]["seq"] // 2
+        assert runs["port"][0][case]["aux"][0] > 0
+        assert runs["port"][0][case]["slot_peak"] >= moe.capacity(cfg,
+                                                                  tokens)
+    d = runs["dir"]
+    got = np.load(os.path.join(d, f"port_{case}.npz"))
+    want = np.load(os.path.join(d, f"jax_{case}.npz"))
+    assert sorted(got.files) == sorted(want.files)
+    for k in want.files:
+        gap = np.abs(got[k].astype(np.float64) - want[k]).max()
+        assert gap <= fam._tol(want[k]), (k, gap)
+
+
+def test_microbatch_rows_lay_out_the_global_microbatches():
+    """``microbatch_rows`` over (data 2): rank r's local microbatch i is
+    rows ``[i*B/mb + r*B/(mb*R), i*B/mb + (r+1)*B/(mb*R))`` of the global
+    batch; at microbatch 1 it is ``shard_leaf``'s contiguous block."""
+    from repro_torch.core.policy import default_plan
+    from repro_torch.distributed import sharding as shard_mod
+    B, mb, R = 8, 2, 2
+    x = torch.arange(B * 3).reshape(B, 3)
+    for r in range(R):
+        mesh = types.SimpleNamespace(shape={"data": R, "model": 1},
+                                     coords={"data": r, "model": 0})
+        spec = shard_mod.batch_shardings(default_plan(mesh, "train"),
+                                         {"tokens": x})["tokens"]
+        got = shard_mod.microbatch_rows(x, spec, mesh, mesh.coords, mb)
+        rows = [i * B // mb + r * B // (mb * R) + j for i in range(mb)
+                for j in range(B // (mb * R))]
+        assert torch.equal(got, x[rows])
+        assert torch.equal(
+            shard_mod.microbatch_rows(x, spec, mesh, mesh.coords, 1),
+            shard_mod.shard_leaf(x, spec, mesh, mesh.coords))
+    with pytest.raises(ValueError, match="microbatches"):
+        shard_mod.microbatch_rows(x[:6], spec, mesh, mesh.coords, 2)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
