@@ -327,6 +327,23 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    uninterrupted run's; on the other splits the losses within 1e-5
    (relative); each resumed rank's moment bytes its ZeRO-1 share.
 
+14. [examples]: the three user-facing examples of the port
+   (``examples/quickstart_torch.py``, ``serve_batched_torch.py``,
+   ``autotune_regions_torch.py``) at their default device, ``cuda``, one
+   after another in a child on the card that starts with phase 13's
+   first children, before phase 11, and runs beside phases 11-12 (the
+   examples are small: reduced configs, counts on the meta device).
+   Gates: the child exits 0; the batched-serving example's
+   continuous-batching and overcommit sections end with 8/8 and 6/6
+   requests ``DONE`` and no leaked page; its lockstep rwkv6-3b serve
+   launches ``wkv_fused`` (the null plan runs the sequential recurrence
+   in both prefill and decode, as the JAX package's example does, so
+   ``wkv_chunk`` is printed, not gated); the plan JSON that the autotune
+   example writes loads back with ``RegionPlan.from_json``.  Each
+   example's wall time and launches by kernel are printed, and the
+   kernels' record of ``wkv_fused`` and ``wkv_chunk`` gains
+   ``launches_examples``.
+
 ``python3 chip_smoke.py --paged-host-time`` runs only the paged kernel's
 timed config (both spins and the host time per call) and exits;
 ``python3 chip_smoke.py --train`` runs only the [train] phase,
@@ -335,8 +352,8 @@ the [vlm] phase and ``--serve-subsystems`` only phase 9 (each after
 building the paged kernel), ``--whisper`` only the [whisper] phase and
 ``--bots`` only phase 10 (no kernel build), ``--train-recurrent`` only
 phase 11 (after building the scan kernels), ``--tp`` only phase 12
-(after building the paged kernel), ``--dryrun`` only phase 13 (after
-building the scan kernels).
+(after building the paged kernel), ``--dryrun`` only phase 13 and
+``--examples`` only phase 14 (each after building the scan kernels).
 
 Random weights come from a seeded torch.Generator.  The launch counts of
 each serve phase are set to 0 just before it and read just after.  The
@@ -4058,6 +4075,90 @@ def resume_phase(started) -> None:
         f"from the child's start")
 
 
+# [examples]: the port's examples in turn, in one child on the card, each
+# through its main() at its default device
+EXAMPLES = ("quickstart", "serve_batched", "autotune_regions")
+
+_EXAMPLES_CHILD = r"""
+import importlib.util, json, sys, time
+root, out_dir = sys.argv[1], sys.argv[2]
+from repro_torch.kernels import LAUNCHES
+rec = {}
+for name in json.loads(sys.argv[3]):
+    path = "%s/examples/%s_torch.py" % (root, name)
+    spec = importlib.util.spec_from_file_location(name + "_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    before = dict(LAUNCHES)
+    t = time.perf_counter()
+    summary = mod.main(["--out-dir", out_dir]
+                       if name == "autotune_regions" else [])
+    rec[name] = {"wall_s": time.perf_counter() - t, "summary": summary,
+                 "launches": {k: n - before.get(k, 0)
+                              for k, n in sorted(LAUNCHES.items())
+                              if n - before.get(k, 0)}}
+    print("[examples] %s done in %.1f s" % (name, rec[name]["wall_s"]),
+          flush=True)
+print("EXAMPLES " + json.dumps(rec, default=str), flush=True)
+"""
+
+
+def start_examples():
+    """Start [examples] (phase 14 of the module docstring) in a child on
+    the card, its output to a log under ``build/``; returns (the process,
+    the log's path, its start)."""
+    out = ROOT / "build" / "smoke_examples"
+    out.mkdir(parents=True, exist_ok=True)
+    path = ROOT / "build" / "smoke_examples.log"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with open(path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _EXAMPLES_CHILD, str(ROOT), str(out),
+             json.dumps(EXAMPLES)], env=env, cwd=ROOT, stdout=f,
+            stderr=subprocess.STDOUT, text=True)
+    return proc, path, time.perf_counter()
+
+
+def examples_phase(started) -> dict:
+    """[examples]: phase 14 of the module docstring, from the child
+    ``start_examples`` started.  Returns the scan kernels' launches in
+    the examples (``wkv_fused``, ``wkv_chunk``)."""
+    import shutil
+
+    from repro_torch.core.policy import RegionPlan
+    proc, path, t0 = started
+    rc = proc.wait(timeout=900)
+    text = path.read_text()
+    check(rc == 0, f"the examples failed (exit {rc}):\n{text[-3000:]}")
+    got = json.loads([ln for ln in text.splitlines()
+                      if ln.startswith("EXAMPLES ")][-1][len("EXAMPLES "):])
+    for name in EXAMPLES:
+        log(f"[examples] {name}: {got[name]['wall_s']:.1f} s, launches by "
+            f"kernel {got[name]['launches']}")
+    served = got["serve_batched"]["summary"]
+    for section, want in (("continuous", 8), ("overcommit", 6)):
+        rec = served[section]
+        log(f"[examples] serve_batched {section}: {rec['done']}/"
+            f"{rec['requests']} requests DONE in {rec['steps']} pool steps, "
+            f"leaked pages {rec['page_leaks']}")
+        check(rec["done"] == rec["requests"] == want
+              and rec["page_leaks"] == 0,
+              f"serve_batched {section}: {rec}")
+    launches = got["serve_batched"]["launches"]
+    counts = {k: launches.get(k, 0) for k in ("wkv_fused", "wkv_chunk")}
+    check(counts["wkv_fused"] > 0,
+          f"serve_batched launched no wkv_fused: {launches}")
+    plan_path = Path(got["autotune_regions"]["summary"]["plan"])
+    plan = RegionPlan.from_json(plan_path.read_text())
+    log(f"[examples] autotune_regions: the plan at {plan_path} loads back "
+        f"with {len(plan.region_configs)} region configs; the corpus holds "
+        f"{got['autotune_regions']['summary']['entries']} entries")
+    shutil.rmtree(ROOT / "build" / "smoke_examples", ignore_errors=True)
+    log(f"[examples] {time.perf_counter() - t0:.1f} s from the child's "
+        f"start")
+    return counts
+
+
 def stop_children(started: dict) -> None:
     """Kill whatever of ``started`` still runs."""
     for proc, *_ in started.values():
@@ -4750,6 +4851,18 @@ def main() -> int:
         finally:
             stop_children(started)
         return 0
+    if sys.argv[1:] == ["--examples"]:
+        from repro_torch.kernels import cuda_build
+        from repro_torch.kernels import linear_scan as ls
+        log(f"[card] {card_line()}")
+        cuda_build.build("linear_scan")
+        ls.build()
+        started = {"examples": start_examples()}
+        try:
+            examples_phase(started["examples"])
+        finally:
+            stop_children(started)
+        return 0
     if sys.argv[1:] == ["--train-recurrent"]:
         from repro_torch.kernels import cuda_build
         from repro_torch.kernels import linear_scan as ls
@@ -4818,8 +4931,10 @@ def main() -> int:
     bots_phase(torch)
     # phase 13's children: the dry-run's count on the host and the kill
     # and resume runs (small, on the card) beside phases 11-12, the other
-    # families' training beside phase 12
-    started = {"dryrun": start_dryrun(), "resume": start_resume()}
+    # families' training beside phase 12; phase 14's examples (small, on
+    # the card) beside phases 11-12
+    started = {"dryrun": start_dryrun(), "resume": start_resume(),
+               "examples": start_examples()}
     try:
         for name, count in train_recurrent_phase(torch).items():
             scan_records[name]["launches_train"] = count
@@ -4830,6 +4945,8 @@ def main() -> int:
         record["launches_tp_by_rank"] = by_rank
         record["launches_tp_granite"] = sum(by_arch[MOE_TRAIN_ARCH])
         by_kernel = sharded_phase(torch, started)
+        for name, count in examples_phase(started["examples"]).items():
+            scan_records[name]["launches_examples"] = count
     finally:
         stop_children(started)
     for name, by_rank in by_kernel.items():

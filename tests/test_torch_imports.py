@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither ``jax`` nor the JAX package,
-and its entry points refuse to fall back to the CPU unasked."""
+"""The port stands alone: it imports neither ``jax`` nor the JAX package
+(nor do its examples, ``examples/*_torch.py``), and its entry points
+refuse to fall back to the CPU unasked."""
 import os
 import pathlib
 import re
@@ -28,6 +29,12 @@ for m in ("repro_torch.serve.graphs", "repro_torch.optim.adamw",
     assert m in mods, (m, mods)
 for m in mods:
     importlib.import_module(m)
+import importlib.util, pathlib
+examples = sorted(pathlib.Path("examples").glob("*_torch.py"))
+assert len(examples) == 4, examples
+for path in examples:
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print(len(mods))
@@ -63,12 +70,13 @@ def test_every_module_imports_without_jax_or_repro():
 
 def test_sources_hold_no_forbidden_call():
     """No jax, no JAX-package import, no library attention kernel, no
-    torch.compile, in the port or in chip_smoke.py."""
+    torch.compile, in the port, its examples or chip_smoke.py."""
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b(?!_torch)"
                      r"|from repro[. ](?!_torch))"
                      r"|scaled_dot_product_attention|torch\.compile",
                      re.M)
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("*_torch.py")))
     for f in files:
         text = f.read_text()
         assert not pat.search(text), f"{f}: {pat.search(text).group(0)}"
