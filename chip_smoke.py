@@ -10,8 +10,10 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    source of ``src/repro_torch/kernels/csrc`` is built with nvcc, one
    process per source, all at once; registers, spills and shared memory
    are logged.  ``cuobjdump -sass`` must find the tensor cores' HGMMA in
-   every bf16 ``tuned_matmul`` kernel and HMMA (or HGMMA) in every bf16
-   ``flash_attention`` kernel.
+   every bf16 ``tuned_matmul`` kernel, HMMA (or HGMMA) in every bf16
+   ``flash_attention`` kernel, HMMA (or HGMMA) on TF32 operands in every
+   f32 ``flash_attention`` kernel (3xTF32), and FFMA with no TF32
+   instruction in every f32 ``tuned_matmul`` kernel (the CUDA cores).
 2. kernel: each CUDA kernel against its plain PyTorch version on the card,
    at the main paths' shapes, with the kernel's time, the plain version's
    time, one library call's time where one exists, and the bound (the
@@ -42,7 +44,9 @@ Phases, in order; any failure exits nonzero and nothing is passed over:
    tile of its menu at each shape of the JAX package's kernel tests, and at the default tiles on (64, 384, 256); ``flash_attention``
    at every case of those tests and the masking cases (S != Sk, rows that
    see no key); both in f32 and bf16, then timed at stablelm-1.6b's full
-   width (attention also on pre-made (BH, S, D) inputs: within 10% of
+   width (both f32 kernels held on three draws, the matmul's and
+   ``torch.matmul``'s outputs outside the tolerance of the exact product
+   counted; attention also on pre-made (BH, S, D) inputs: within 10% of
    ``ops.attention``, which reads the model layout in place and allocates
    nothing but its output).  Their path, the ``kernels.ops`` entry point
    (no model of either package calls them), is then driven once at those
@@ -353,7 +357,9 @@ building the paged kernel), ``--whisper`` only the [whisper] phase and
 ``--bots`` only phase 10 (no kernel build), ``--train-recurrent`` only
 phase 11 (after building the scan kernels), ``--tp`` only phase 12
 (after building the paged kernel), ``--dryrun`` only phase 13 and
-``--examples`` only phase 14 (each after building the scan kernels).
+``--examples`` only phase 14 (each after building the scan kernels);
+``--dense`` builds ``tuned_matmul`` and ``flash_attention``, checks their
+SASS, holds and times them as phase 2 does and drives their path.
 
 Random weights come from a seeded torch.Generator.  The launch counts of
 each serve phase are set to 0 just before it and read just after.  The
@@ -1190,8 +1196,9 @@ def dense_kernel_phase(torch) -> dict:
     every case of the JAX package's kernel tests and the masking cases
     (f32 and bf16, within ref.KERNEL_TOL), then timed at stablelm-1.6b's
     full width in both dtypes beside their plain versions, one library
-    call each and their bounds.  Returns the two kernels' records (the
-    bf16 calls; f32 timings are logged)."""
+    call each and their bounds (f32 attention: 3xTF32 on the tensor cores,
+    the CUDA-core bound beside it).  Returns the two kernels' records: the
+    bf16 calls', with the f32 calls' under ``*_f32`` keys."""
     from library_yardsticks import (attention_library, dense_attention_inputs,
                                     matmul_library)
     from repro_torch.core.roofline import card_for_device
@@ -1199,7 +1206,8 @@ def dense_kernel_phase(torch) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import tuned_matmul as tm
     rng = np.random.default_rng(21)
-    errs = {"tuned_matmul": 0.0, "flash_attention": 0.0}
+    errs = {"tuned_matmul": 0.0, "flash_attention": 0.0,
+            "tuned_matmul_f32": 0.0, "flash_attention_f32": 0.0}
     # every tile of the menu at the JAX test shapes, then the default tiles
     # at (64, 384, 256) (clamped to (64, 128, 128))
     mm_cases = [(shape, tiles) for shape, _ in MATMUL_CASES
@@ -1215,7 +1223,8 @@ def dense_kernel_phase(torch) -> dict:
                                  bk=tiles[2])
                 what = f"tiles={tiles}"
             torch.cuda.synchronize()
-            errs["tuned_matmul"] = max(errs["tuned_matmul"], _dense_check(
+            key = "tuned_matmul" + ("_f32" if dtype == torch.float32 else "")
+            errs[key] = max(errs[key], _dense_check(
                 torch, "tuned_matmul", got, ref.matmul(x, y), dtype,
                 f"{dtype} M={M} K={K} N={N} {what}"))
         cases = [(S, S, D, bq, bk, causal, window)
@@ -1229,12 +1238,15 @@ def dense_kernel_phase(torch) -> dict:
                                 block_q=bq, block_k=bk)
             torch.cuda.synchronize()
             want = ref.flash_attention(q, k, v, causal=causal, window=window)
-            errs["flash_attention"] = max(
-                errs["flash_attention"], _dense_check(
+            key = ("flash_attention"
+                   + ("_f32" if dtype == torch.float32 else ""))
+            errs[key] = max(
+                errs[key], _dense_check(
                     torch, "flash_attention", got, want, dtype,
                     f"{dtype} S={S} Sk={Sk} D={D} bq={bq} bk={bk} "
                     f"causal={causal} window={window}"))
     records = {}
+    f32_times = {}
     c = card_for_device("cuda")
     M, K, N = MATMUL_TIMED
     for dtype in (torch.float32, torch.bfloat16):
@@ -1244,23 +1256,26 @@ def dense_kernel_phase(torch) -> dict:
         torch.cuda.synchronize()
         err = _dense_check(torch, "tuned_matmul", got, ref.matmul(x, y),
                            dtype, f"{dtype} M={M} K={K} N={N} default tiles")
-        if dtype == torch.bfloat16:
-            # why the plain version of a bf16 product sums in f64: against
-            # the f32 product even the exact product rounded to bf16 misses
-            # the bound on a few elements (this draw, then two more)
-            for draw in ("timed", 0, 1):
-                xd, yd, gd = x, y, got
-                if draw != "timed":
-                    drng = np.random.default_rng(draw)
-                    xd = _randn(torch, drng, (M, K), 0.5, dtype)
-                    yd = _randn(torch, drng, (K, N), 0.5, dtype)
-                    gd = ops.matmul(xd, yd)
-                exact = ref.matmul(xd, yd)
-                f32_sum = torch.matmul(xd.float(), yd.float())
-                log(f"[kernel] tuned_matmul {dtype} M={M} K={K} N={N} draw "
+        # the timed draw, then two more: bf16 against the exact product
+        # (why its plain version sums in f64: against the f32 product even
+        # the exact product rounded to bf16 misses the bound on a few
+        # elements); f32 against its plain version, with the kernel's and
+        # the library call's counts against the exact product
+        for draw in ("timed", 0, 1):
+            xd, yd, gd = x, y, got
+            if draw != "timed":
+                drng = np.random.default_rng(draw)
+                xd = _randn(torch, drng, (M, K), 0.5, dtype)
+                yd = _randn(torch, drng, (K, N), 0.5, dtype)
+                gd = ops.matmul(xd, yd)
+            exact = torch.matmul(xd.double(), yd.double()).float()
+            f32_sum = torch.matmul(xd.float(), yd.float())
+            what = (f"[kernel] tuned_matmul {dtype} M={M} K={K} N={N} draw "
                     f"{draw}: the f32 product strays "
                     f"{float((f32_sum - exact).abs().max()):.3e} from the "
-                    f"exact one; against it, outside ref.KERNEL_TOL: the "
+                    f"exact one; ")
+            if dtype == torch.bfloat16:
+                log(what + f"against it, outside ref.KERNEL_TOL: the "
                     f"kernel {_outside(gd, f32_sum, dtype)}, the exact "
                     f"product rounded "
                     f"{_outside(exact.to(dtype), f32_sum, dtype)} of "
@@ -1269,16 +1284,40 @@ def dense_kernel_phase(torch) -> dict:
                     f"{_outside(matmul_library(xd, yd), exact, dtype)}")
                 check(_outside(gd, exact, dtype) == 0,
                       f"tuned_matmul draw {draw} misses ref.KERNEL_TOL")
-                del xd, yd, gd, exact, f32_sum
+            else:
+                plain = ref.matmul(xd, yd)
+                lib_out = _outside(matmul_library(xd, yd), exact, dtype)
+                log(what + f"outside ref.KERNEL_TOL of the exact product: "
+                    f"the kernel {_outside(gd, exact, dtype)}, the "
+                    f"library call {lib_out} of {gd.numel()}; of the "
+                    f"plain version: the kernel "
+                    f"{_outside(gd, plain, dtype)}, max_abs_err "
+                    f"{float((gd - plain).abs().max()):.3e}")
+                check(ref.within_tol(gd, plain, dtype),
+                      f"tuned_matmul f32 draw {draw} misses ref.KERNEL_TOL "
+                      f"of its plain version")
+                del plain
+            del xd, yd, gd, exact, f32_sum
         ms = time_ms(torch, lambda: ops.matmul(x, y), iters=10)
         plain_ms = time_ms(torch, lambda: ref.matmul(x, y), iters=10)
         lib_ms = time_ms(torch, lambda: matmul_library(x, y), iters=10)
-        bound_ms, bound_by = work.bound_ms(
-            *work.matmul(M, N, K, x.element_size()), dtype, c)
+        mm_work = work.matmul(M, N, K, x.element_size())
+        bound_ms, bound_by = work.bound_ms(*mm_work, dtype, c)
         shape = f"{str(dtype)[6:]} M={M} K={K} N={N} tiles=(128,128,128)"
+        tf32 = ""
+        if dtype == torch.float32:
+            # the f32 kernel's route is the CUDA cores; a 3xTF32 product on
+            # the tensor cores (the route not taken) is bounded beside it
+            tf32_ms = work.bound_ms(*mm_work, dtype, c, tf32_passes=3)[0]
+            tf32 = f"; 3xTF32 bound {tf32_ms:.4f} ms"
+            f32_times["tuned_matmul"] = {
+                "ms_f32": ms, "plain_ms_f32": plain_ms,
+                "library_ms_f32": lib_ms, "bound_ms_f32": bound_ms,
+                "bound_by_f32": bound_by, "bound_ms_f32_3xtf32": tf32_ms,
+                "max_abs_err_f32": max(errs["tuned_matmul_f32"], err)}
         log(f"[kernel] timed tuned_matmul {shape}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+            f"{bound_ms:.4f} ms ({bound_by}{tf32})")
         records["tuned_matmul"] = {
             "name": "tuned_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/tuned_matmul.cu",
@@ -1299,6 +1338,19 @@ def dense_kernel_phase(torch) -> dict:
                                f"{dtype} B={B} S={S} H={H} D={D} causal "
                                f"window={window} default tiles")
             del want
+            if dtype == torch.float32:
+                # the f32 kernel (3xTF32) on two more draws of the shape
+                for draw in (0, 1):
+                    drng = np.random.default_rng(draw)
+                    qd, kd, vd = (_randn(torch, drng, (B, S, H, D), 1.0,
+                                         dtype) for _ in range(3))
+                    err = max(err, _dense_check(
+                        torch, "flash_attention",
+                        ops.attention(qd, kd, vd, window=window),
+                        ref.flash_attention(qd, kd, vd, window=window),
+                        dtype, f"{dtype} B={B} S={S} H={H} D={D} causal "
+                               f"window={window} default tiles draw {draw}"))
+                    del qd, kd, vd
             # no copy: the call allocates its output and nothing more
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
@@ -1320,15 +1372,29 @@ def dense_kernel_phase(torch) -> dict:
                 q, k, v, window=window), iters=5)
             lib_ms = time_ms(torch, lambda: attention_library(*dense),
                              iters=10)
-            bound_ms, bound_by = work.bound_ms(*work.attention(
-                B * H, S, S, D, q.element_size(), True, window), dtype, c)
+            at_work = work.attention(B * H, S, S, D, q.element_size(), True,
+                                     window)
+            bound_ms, bound_by = work.bound_ms(
+                *at_work, dtype, c,
+                tf32_passes=3 if dtype == torch.float32 else 0)
             shape = (f"{str(dtype)[6:]} B={B} S={S} H={H} D={D} causal "
                      f"window={window} tiles=(128,128)")
+            simt = ""
+            if dtype == torch.float32:
+                simt_ms = work.bound_ms(*at_work, dtype, c)[0]
+                simt = f", 3xTF32; CUDA-core bound {simt_ms:.4f} ms"
+                f32_times.setdefault("flash_attention", {
+                    "ms_f32": ms, "bhsd_ms_f32": bhsd_ms,
+                    "plain_ms_f32": plain_ms, "library_ms_f32": lib_ms,
+                    "bound_ms_f32": bound_ms, "bound_by_f32": bound_by,
+                    "bound_ms_f32_cuda_cores": simt_ms,
+                    "max_abs_err_f32": max(errs["flash_attention_f32"],
+                                           err)})
             log(f"[kernel] timed flash_attention {shape}: kernel {ms:.4f} "
                 f"ms (ops.attention on the model layout; {bhsd_ms:.4f} ms "
                 f"on pre-made (BH, S, D) inputs), plain {plain_ms:.4f} ms, "
                 f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}); no copy: {extra} bytes allocated")
+                f"({bound_by}{simt}); no copy: {extra} bytes allocated")
             check(abs(ms - bhsd_ms) <= 0.1 * bhsd_ms,
                   f"ops.attention {ms:.4f} ms vs the kernel on pre-made "
                   f"(BH, S, D) inputs {bhsd_ms:.4f} ms: more than 10% apart")
@@ -1343,6 +1409,8 @@ def dense_kernel_phase(torch) -> dict:
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": lib_ms, "shape": shape}
             del q, k, v, dense, folded
+    for name, times in f32_times.items():
+        records[name].update(times)
     return records
 
 
@@ -4734,23 +4802,20 @@ def train_recurrent_phase(torch) -> dict:
     return launches
 
 
-def build_all(torch) -> None:
-    """Build every kernel source at once (one nvcc process each), then load
-    the libraries; log each build's registers, spills and shared memory."""
+def build_all(torch, names=("paged_attention", "linear_scan",
+                             "tuned_matmul", "flash_attention")) -> None:
+    """Build every kernel source of ``names`` at once (one nvcc process
+    each), then load the libraries; log each build's registers, spills and
+    shared memory."""
+    import importlib
     from repro_torch.kernels import cuda_build
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import linear_scan as ls
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import tuned_matmul as tm
-    names = ("paged_attention", "linear_scan", "tuned_matmul",
-             "flash_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         for name, fut in [(n, ex.submit(cuda_build.build, n))
                           for n in names]:
             fut.result()
-    for mod in (pa, ls, tm, fa):
-        mod.build()
+    for name in names:
+        importlib.import_module(f"repro_torch.kernels.{name}").build()
     log(f"[build] {', '.join(n + '.cu' for n in names)} in "
         f"{time.perf_counter() - t0:.2f} s -> " + ", ".join(
             cuda_build.library_path(n).name for n in names))
@@ -4762,29 +4827,54 @@ def build_all(torch) -> None:
 
 
 def sass_phase() -> None:
-    """The bf16 dense kernels run on the tensor cores: ``cuobjdump -sass``
-    (from the toolkit beside nvcc) must show HGMMA (wgmma) in every bf16
-    ``tuned_matmul`` kernel and HMMA (mma.sync) or HGMMA in every bf16
-    ``flash_attention`` kernel."""
+    """The bf16 dense kernels run on the tensor cores and the f32 ones as
+    designed: ``cuobjdump -sass`` (from the toolkit beside nvcc) must show
+    HGMMA (wgmma) in every bf16 ``tuned_matmul`` kernel, HMMA (mma.sync)
+    or HGMMA in every bf16 ``flash_attention`` kernel, HMMA or HGMMA on
+    TF32 operands in every f32 ``flash_attention`` kernel (3xTF32), and
+    FFMA with no TF32 instruction (neither a conversion nor a product) in
+    every f32 ``tuned_matmul`` kernel (the CUDA cores), each kernel
+    counted."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import tuned_matmul as tm
     cuobjdump = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
-    for lib, marker, want, ops_ in (
-            ("tuned_matmul", "matmul_bf16_wgmma", len(tm.MENU), ("HGMMA",)),
-            ("flash_attention", "flash_bf16_mma",
-             len(fa.HEAD_DIMS) * len(fa.TILES), ("HMMA", "HGMMA"))):
-        out = subprocess.run(
-            [str(cuobjdump), "-sass", str(cuda_build.library_path(lib))],
-            capture_output=True, text=True, timeout=300, check=True).stdout
-        funcs = [f for f in out.split("Function : ")[1:]
+    attn = len(fa.HEAD_DIMS) * len(fa.TILES)
+    sass = {}
+    # (library, dtype, kernel name, kernels, instructions one of which
+    # every kernel must hold, the text those lines must also hold, the
+    # text no line may hold)
+    for lib, kind, marker, want, ops_, with_, without in (
+            ("tuned_matmul", "bf16", "matmul_bf16_wgmma", len(tm.MENU),
+             ("HGMMA",), "", None),
+            ("flash_attention", "bf16", "flash_bf16_mma", attn,
+             ("HMMA", "HGMMA"), "", None),
+            ("tuned_matmul", "f32", "matmul_f32_simt",
+             len({(bm, bn) for bm, bn, _ in tm.MENU}), ("FFMA",), "",
+             "TF32"),
+            ("flash_attention", "f32", "flash_f32_mma", attn,
+             ("HMMA", "HGMMA"), ".TF32", None)):
+        if lib not in sass:
+            sass[lib] = subprocess.run(
+                [str(cuobjdump), "-sass", str(cuda_build.library_path(lib))],
+                capture_output=True, text=True, timeout=300,
+                check=True).stdout
+        funcs = [f for f in sass[lib].split("Function : ")[1:]
                  if marker in f.splitlines()[0]]
-        counts = [sum(f.count(op) for op in ops_) for f in funcs]
-        log(f"[sass] {lib}: {len(funcs)} bf16 kernels ({marker}), "
-            f"{'/'.join(ops_)} instructions each: {counts}")
+        counts = [sum(1 for line in f.splitlines()
+                      if any(op in line for op in ops_) and with_ in line)
+                  for f in funcs]
+        what = "/".join(ops_) + (f" on {with_[1:]} operands" if with_ else "")
+        log(f"[sass] {lib}: {len(funcs)} {kind} kernels ({marker}), {what} "
+            f"instructions each: {counts}"
+            + (f"; lines holding {without}: "
+               f"{sum(f.count(without) for f in funcs)}" if without else ""))
         check(len(funcs) == want,
-              f"{lib}: {len(funcs)} bf16 kernels in the SASS, want {want}")
-        check(all(counts), f"{lib}: a bf16 kernel without {ops_} in its SASS")
+              f"{lib}: {len(funcs)} {kind} kernels in the SASS, want {want}")
+        check(all(counts), f"{lib}: a {kind} kernel without {what} in its "
+                           f"SASS")
+        check(not without or not any(without in f for f in funcs),
+              f"{lib}: a {kind} kernel holds {without} in its SASS")
 
 
 def main() -> int:
@@ -4862,6 +4952,15 @@ def main() -> int:
             examples_phase(started["examples"])
         finally:
             stop_children(started)
+        return 0
+    if sys.argv[1:] == ["--dense"]:
+        log(f"[card] {card_line()}")
+        build_all(torch, ("tuned_matmul", "flash_attention"))
+        sass_phase()
+        records = dense_kernel_phase(torch)
+        for name, count in ops_path_phase(torch).items():
+            records[name]["launches"] = count
+        print(json.dumps({"kernels": list(records.values())}))
         return 0
     if sys.argv[1:] == ["--train-recurrent"]:
         from repro_torch.kernels import cuda_build

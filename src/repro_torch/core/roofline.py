@@ -29,11 +29,12 @@ class Card:
     hbm_bw: float           # device-memory bytes
     nvlink_bw: float        # NVLink bytes, one direction
     hbm_bytes: float        # device memory
+    tf32_flops: float       # dense TF32 on the tensor cores (~half of bf16)
 
 
-H100_SXM = Card("H100 SXM", 989e12, 67e12, 3.35e12, 450e9, 80e9)
-H100_PCIE = Card("H100 PCIe", 756e12, 51e12, 2.0e12, 300e9, 80e9)
-H100_NVL = Card("H100 NVL", 835e12, 60e12, 3.9e12, 300e9, 94e9)
+H100_SXM = Card("H100 SXM", 989e12, 67e12, 3.35e12, 450e9, 80e9, 495e12)
+H100_PCIE = Card("H100 PCIe", 756e12, 51e12, 2.0e12, 300e9, 80e9, 378e12)
+H100_NVL = Card("H100 NVL", 835e12, 60e12, 3.9e12, 300e9, 94e9, 417.5e12)
 
 PEAK_FLOPS = H100_SXM.bf16_flops
 HBM_BW = H100_SXM.hbm_bw

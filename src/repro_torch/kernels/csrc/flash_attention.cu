@@ -21,8 +21,8 @@
 // What bounds it.  Attention does ~4 * D flops per (query, visible key)
 // pair against ~4 * D bytes per query or key row it must read: at the main
 // path's shape (S = 512, D = 64, causal) the bf16 call is bound by the bytes
-// it must move, and f32 (no tensor-core path that meets f32's 1e-5) by the
-// CUDA cores' operations.
+// it must move, and the f32 call (three TF32 products a product, below) by
+// the tensor cores' TF32 operations.
 //
 // bf16: what the design does about that.  `flash_bf16_mma` runs both
 // products on the tensor cores with `mma.sync.m16n8k16` (bf16 in, f32
@@ -42,10 +42,35 @@
 // as one SFU `ex2.approx` (2^-22 relative error) and each pair of P is
 // split with two packing conversions.
 //
-// f32: the CUDA-core kernel `flash_kernel`.  One block of 256 threads per
-// (b, h, q-tile) keeps Q and the full (bq, bk) score tile in shared memory
-// and streams K, then V, through one 32-row sub-tile buffer; the (bq, D)
-// accumulator lives in registers.  At most 150 KB of shared memory.
+// f32: what the design does about that.  `flash_f32_mma` runs both
+// products on the tensor cores as a 3xTF32 split with
+// `mma.sync.m16n8k8.f32.tf32.tf32.f32`: each f32 operand a becomes a_hi =
+// tf32(a) (`cvt.rna`) and a_lo = tf32(a - a_hi), and a product is lo.hi +
+// hi.lo + hi.hi into one f32 tile, the small terms first (lo.lo, at most
+// 2^-22 of it, is dropped).  The block layout is the bf16 kernel's: a block
+// per (b, h, q-tile of bq rows), a warp per 16 query rows.  Q is split once
+// per block into registers (D <= 64; at D = 128 its halves would take 128
+// registers a thread, so Q stays f32 there and each use splits it), each K
+// tile as its fragments are read for S = Q.K^T, P and each V tile as their
+// fragments are read for O = P.V.  A product's columns may stand for any k
+// of its step: in S two steps cover 16 dims, a lane's columns being dims
+// 4t, 4t+1 and 4t+2, 4t+3, so one 16-byte load of a K row feeds both; in
+// O = P.V a lane's columns are keys 2t and 2t+1, where the score
+// accumulator holds them, so P needs no shuffle.  The tensor cores' f32
+// adds do not round to nearest, so no sum runs long on them: S sums the D
+// dims of one k-tile into a fresh tile; each group of (up to 4) output
+// tiles sums the k-tile's keys of P.V into a fresh tile, added to O as O =
+// alpha O + part with round-to-nearest FMAs.  At the main path's shape it
+// is within 4.3e-6 of the plain version (the gate 1e-5 + 1e-5 x
+// |plain|).  K and V each have one buffer and alternate: the next K tile
+// loads by `cp.async` while this tile's softmax and P.V run, the next V
+// tile while the next S runs (K rows padded by 16 floats, V rows by 4, so
+// the fragment loads hit distinct banks); at most 138 KB of shared memory
+// (D = 128, bk = 128).  At the main path's shape it takes ~6x its 3xTF32
+// bound: every warp re-splits the whole K and V tile (8 warps at bq =
+// 128), and the softmax's elementwise work issues beside the MMAs;
+// splitting K and V once per block into shared memory is the next step
+// (at D = 128, bk = 128 the split halves would not fit beside each other).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,9 +81,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 256;       // f32 kernel
 constexpr int kMaxTile = 128;       // bq and bk at most this
-constexpr int kSub = 32;            // f32: K/V rows staged at once
 
 // (batch, head, row) strides of a tensor in elements; its last dim is
 // contiguous
@@ -78,158 +101,6 @@ __device__ __forceinline__ void tile_range(int q0, int bq, int Sk, int bk,
     const int hi = causal ? min(last, Sk - 1) : Sk - 1;
     kb0 = lo / bk;
     kb1 = hi / bk;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32: CUDA cores
-// ---------------------------------------------------------------------------
-
-size_t smem_floats(int D, int bq, int bk) {
-  const int kt = bk < kSub ? bk : kSub;
-  return (size_t)bq * (D + 1) + (size_t)bq * (bk + 1) + (size_t)kt * (D + 1) +
-         3 * (size_t)bq;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int H,
-             int S, int Sk, int bq, int bk, int causal, int window,
-             float scale, Strides sq, Strides sk, Strides sv, Strides so) {
-  constexpr int DP = D + 1;                 // padded row of Q / K / V
-  constexpr int CG = D / 4;                 // column groups of the acc
-  constexpr int NGR = kThreads / CG;        // row groups of the acc
-  constexpr int R = kMaxTile / NGR;         // acc rows per thread (max)
-  extern __shared__ float smem[];
-  const int SP = bk + 1;                    // padded row of the score tile
-  const int kt = bk < kSub ? bk : kSub;
-  float* qs = smem;                         // [bq][DP]
-  float* ss = qs + bq * DP;                 // [bq][SP]
-  float* kv = ss + bq * SP;                 // [kt][DP]
-  float* m_s = kv + kt * DP;                // [bq]
-  float* l_s = m_s + bq;                    // [bq]
-  float* a_s = l_s + bq;                    // [bq]
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * bq;
-  const float* qb = q + b * sq.b + h * sq.h + q0 * sq.r;
-  const float* kb_ = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-
-  for (int e = tid; e < bq * D; e += kThreads)
-    qs[(e / D) * DP + e % D] = qb[(e / D) * sq.r + e % D];
-  for (int r = tid; r < bq; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-
-  int kb0, kb1;
-  tile_range(q0, bq, Sk, bk, causal, window, kb0, kb1);
-
-  const int dg = tid % CG, rg = tid / CG;
-  float acc[R][4];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  __syncthreads();
-
-  for (int kb = kb0; kb <= kb1; ++kb) {
-    const int k0 = kb * bk;
-    // scores of the (bq, bk) tile, K staged kt rows at a time
-    for (int sub = 0; sub < bk; sub += kt) {
-      for (int e = tid; e < kt * D; e += kThreads)
-        kv[(e / D) * DP + e % D] = kb_[(k0 + sub + e / D) * sk.r + e % D];
-      __syncthreads();
-      const int items = ((bq + 3) / 4) * kt;
-      for (int e = tid; e < items; e += kThreads) {
-        const int c = e % kt, r0 = (e / kt) * 4;
-        float dot[4] = {0.f, 0.f, 0.f, 0.f};
-        const float* kr = kv + c * DP;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-          const float kd = kr[d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (r0 + i < bq) dot[i] = fmaf(qs[(r0 + i) * DP + d], kd, dot[i]);
-        }
-        const int ki = k0 + sub + c;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = r0 + i;
-          if (r >= bq) break;
-          const int qi = q0 + r;
-          bool ok = true;
-          if (causal) ok = ok && qi >= ki;
-          if (window > 0) ok = ok && qi - ki < window;
-          ss[r * SP + sub + c] = ok ? dot[i] * scale : kNegInf;
-        }
-      }
-      __syncthreads();
-    }
-    // online-softmax update, one thread per row, over the whole k-tile
-    for (int r = tid; r < bq; r += kThreads) {
-      float* sr = ss + r * SP;
-      float mx = kNegInf;
-      for (int c = 0; c < bk; ++c) mx = fmaxf(mx, sr[c]);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = 0; c < bk; ++c) {
-        const float p = expf(sr[c] - m_new);
-        sr[c] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_prev - m_new);
-      a_s[r] = alpha;
-      l_s[r] = alpha * l_s[r] + sum;
-      m_s[r] = m_new;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = rg + NGR * i;
-      if (r < bq) {
-        const float alpha = a_s[r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-      }
-    }
-    // acc += P @ V, V staged kt rows at a time
-    for (int sub = 0; sub < bk; sub += kt) {
-      for (int e = tid; e < kt * D; e += kThreads)
-        kv[(e / D) * DP + e % D] = vb[(k0 + sub + e / D) * sv.r + e % D];
-      __syncthreads();
-      for (int c = 0; c < kt; ++c) {
-        float vv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) vv[j] = kv[c * DP + dg + CG * j];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const int r = rg + NGR * i;
-          if (r < bq) {
-            const float p = ss[r * SP + sub + c];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  float* ob = out + b * so.b + h * so.h + q0 * so.r;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = rg + NGR * i;
-    if (r < bq) {
-      const float inv_l = 1.f / fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ob[r * so.r + dg + CG * j] = acc[i][j] * inv_l;
-    }
   }
 }
 
@@ -475,6 +346,260 @@ flash_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// f32: 3xTF32 on the tensor cores (mma.sync.m16n8k8)
+// ---------------------------------------------------------------------------
+
+// a = tf32(x) (to nearest, ties away) and b = tf32(x - a): x = a + b up to
+// 2^-22 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// d (16 x 8, f32) += a (16 x 8, tf32, row) . b (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// three products into one f32 tile, the small terms first: lo . hi,
+// hi . lo, hi . hi (lo . lo, at most 2^-22 of the product, is dropped)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+template <int D>
+__host__ __device__ constexpr int k_pitch() {
+  return D + 16;   // 16-byte loads of (key g, 4 dims at 4t) hit 32 banks
+}                  // per quarter warp
+template <int D>
+__host__ __device__ constexpr int v_pitch() {
+  return D + 4;    // (key 2t (+1), dim g) loads hit 32 banks
+}
+template <int D, int BK>
+constexpr size_t f32_smem_bytes() {
+  return (size_t)BK * (k_pitch<D>() + v_pitch<D>()) * sizeof(float);
+}
+
+// Fragment layouts (m16n8k8, lane l: g = l/4, t = l%4): A holds rows g and
+// g+8 at columns t and t+4; B rows t and t+4 at column g; the accumulator
+// rows g and g+8 at columns 2t and 2t+1.  A product sums over its 8
+// columns in any order, so each step picks which k each column stands for:
+// in S = Q.K^T two steps cover 16 dims, and a lane's columns t and t+4 are
+// dims 4t, 4t+1 in the first and 4t+2, 4t+3 in the second (one 16-byte
+// load of a K row feeds both); in O = P.V columns t and t+4 are keys 2t and
+// 2t+1 of the 8, exactly the score accumulator's columns, so P is the A
+// operand as it lies in registers, with no shuffle.
+template <int D, int BK>
+__global__ void __launch_bounds__(kMaxTile * 2)
+flash_f32_mma(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out, int H,
+              int S, int Sk, int bq, int causal, int window, float scale,
+              Strides sq, Strides sk, Strides sv, Strides so) {
+  constexpr int KP = k_pitch<D>(), VP = v_pitch<D>();
+  constexpr int NS = BK / 8;        // score tiles (8 keys each)
+  constexpr int NO = D / 8;         // output tiles (8 dims each)
+  constexpr int JG = NO < 4 ? NO : 4;   // output tiles a P.V pass sums
+  constexpr bool kQOnce = D <= 64;  // Q split once (registers allow it)
+  extern __shared__ __align__(16) float kvf[];   // K [BK][KP], V [BK][VP]
+  float* ks = kvf;
+  float* vs = kvf + BK * KP;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * bq;
+  const float* kb_ = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+
+  int kb0, kb1;
+  tile_range(q0, bq, Sk, BK, causal, window, kb0, kb1);
+
+  auto load = [&](float* dst, int pitch, const float* src, long long rs,
+                  int kb) {
+    const long long k0 = (long long)kb * BK;
+    for (int e = tid; e < BK * D / 4; e += nthreads) {
+      const int r = e / (D / 4), ch = e % (D / 4);
+      cp_async16(dst + r * pitch + 4 * ch, src + (k0 + r) * rs + 4 * ch);
+    }
+    cp_async_commit();
+  };
+  load(ks, KP, kb_, sk.r, kb0);
+  load(vs, VP, vb, sv.r, kb0);
+
+  // this warp's 16 query rows: g and g + 8 of them; lane (g, c) keeps dims
+  // 16u + 4c .. 16u + 4c + 3 of both (tf32 hi and lo when kQOnce)
+  const int qr = q0 + warp * 16 + g;
+  float qf[D / 16][2][4];
+  float ql[kQOnce ? D / 16 : 1][2][4];
+  {
+    const float* qp = q + b * sq.b + h * sq.h + (long long)qr * sq.r + 4 * c;
+#pragma unroll
+    for (int u = 0; u < D / 16; ++u)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = qp[r * 8 * sq.r + 16 * u + i];
+          if constexpr (kQOnce) {
+            uint32_t hi, lo;
+            split_tf32(x, hi, lo);
+            qf[u][r][i] = __uint_as_float(hi);
+            ql[u][r][i] = __uint_as_float(lo);
+          } else {
+            qf[u][r][i] = x;
+          }
+        }
+  }
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int kb = kb0; kb <= kb1; ++kb) {
+    const int k0 = kb * BK;
+    cp_async_wait<1>();   // K of this tile (its V may be in flight)
+    __syncthreads();
+
+    // S = Q . K^T, one fresh f32 tile over the D dims
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int u = 0; u < D / 16; ++u) {
+      uint32_t qh[2][4], qlo[2][4];   // [step][a0..a3]
+#pragma unroll
+      for (int st = 0; st < 2; ++st)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // a0 (g, dim 2st), a1 (g+8, 2st), a2 (g, 2st+1), a3 (g+8, 2st+1)
+          const int r = i % 2, d = 2 * st + i / 2;
+          if constexpr (kQOnce) {
+            qh[st][i] = __float_as_uint(qf[u][r][d]);
+            qlo[st][i] = __float_as_uint(ql[u][r][d]);
+          } else {
+            split_tf32(qf[u][r][d], qh[st][i], qlo[st][i]);
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(
+            ks + (8 * j + g) * KP + 16 * u + 4 * c);
+        uint32_t kh[4], kl[4];
+        split_tf32(kv.x, kh[0], kl[0]);
+        split_tf32(kv.y, kh[1], kl[1]);
+        split_tf32(kv.z, kh[2], kl[2]);
+        split_tf32(kv.w, kh[3], kl[3]);
+        mma_3xtf32(s[j], qh[0], qlo[0], kh[0], kh[1], kl[0], kl[1]);
+        mma_3xtf32(s[j], qh[1], qlo[1], kh[2], kh[3], kl[2], kl[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with K: refill it
+    if (kb < kb1) load(ks, KP, kb_, sk.r, kb + 1);
+    else cp_async_commit();
+
+    // scale, mask, row max over the tile (rows g: e = 0, 1; g + 8: e = 2, 3)
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = qr + 8 * (e / 2), ki = k0 + 8 * j + 2 * c + (e % 2);
+        bool ok = true;
+        if (causal) ok = ok && qi >= ki;
+        if (window > 0) ok = ok && qi - ki < window;
+        s[j][e] = ok ? s[j][e] * scale : kNegInf;
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // the difference first: two masked -1e30s must give exactly 0
+      alpha[r] = ex2((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2((s[j][e] - m[e / 2]) * kLog2e);
+        sum[e / 2] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = alpha[r] * l[r] + sum[r];
+    }
+
+    cp_async_wait<1>();   // V of this tile (the next K may be in flight)
+    __syncthreads();
+    // O = alpha O + P . V: each group of JG output tiles sums the tile's
+    // keys into a fresh f32 tile, added to O with round-to-nearest FMAs
+#pragma unroll
+    for (int jg = 0; jg < NO; jg += JG) {
+      float part[JG][4];
+#pragma unroll
+      for (int jj = 0; jj < JG; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[jj][e] = 0.f;
+#pragma unroll
+      for (int tt = 0; tt < NS; ++tt) {
+        // a0 (g, key 2c), a1 (g+8, 2c), a2 (g, 2c+1), a3 (g+8, 2c+1)
+        uint32_t ph[4], pl[4];
+        split_tf32(s[tt][0], ph[0], pl[0]);
+        split_tf32(s[tt][2], ph[1], pl[1]);
+        split_tf32(s[tt][1], ph[2], pl[2]);
+        split_tf32(s[tt][3], ph[3], pl[3]);
+        const float* vp = vs + (8 * tt + 2 * c) * VP + 8 * jg + g;
+#pragma unroll
+        for (int jj = 0; jj < JG; ++jj) {
+          uint32_t vh0, vl0, vh1, vl1;
+          split_tf32(vp[8 * jj], vh0, vl0);
+          split_tf32(vp[VP + 8 * jj], vh1, vl1);
+          mma_3xtf32(part[jj], ph, pl, vh0, vh1, vl0, vl1);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < JG; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[jg + jj][e] = fmaf(alpha[e / 2], o[jg + jj][e], part[jj][e]);
+    }
+    __syncthreads();   // every warp is done with V: refill it
+    if (kb < kb1) load(vs, VP, vb, sv.r, kb + 1);
+    else cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  float* op = out + b * so.b + h * so.h + (long long)qr * so.r + 2 * c;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    op[8 * j] = o[j][0] * inv[0];
+    op[8 * j + 1] = o[j][1] * inv[0];
+    op[8 * so.r + 8 * j] = o[j][2] * inv[1];
+    op[8 * so.r + 8 * j + 1] = o[j][3] * inv[1];
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v;
@@ -484,20 +609,20 @@ struct Args {
   Strides sq, sk, sv, so;
 };
 
-template <int D>
+template <int D, int BK>
 int launch_f32(const Args& a, int BH, cudaStream_t st) {
-  const size_t smem = smem_floats(D, a.bq, a.bk) * sizeof(float);
+  constexpr size_t smem = f32_smem_bytes<D, BK>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_f32_mma<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(a.S / a.bq, BH);
-  flash_kernel<D><<<grid, kThreads, smem, st>>>(
+  flash_f32_mma<D, BK><<<grid, a.bq * 2, smem, st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out), a.H, a.S,
-      a.Sk, a.bq, a.bk, a.causal, a.window, a.scale, a.sq, a.sk, a.sv, a.so);
+      a.Sk, a.bq, a.causal, a.window, a.scale, a.sq, a.sk, a.sv, a.so);
   return (int)cudaGetLastError();
 }
 
@@ -520,10 +645,12 @@ int launch_bf16(const Args& a, int BH, cudaStream_t st) {
 
 template <int D>
 int dispatch_d(const Args& a, int BH, int dtype, cudaStream_t st) {
-  if (dtype == 0) return launch_f32<D>(a, BH, st);
-  if (a.bk == 32) return launch_bf16<D, 32>(a, BH, st);
-  if (a.bk == 64) return launch_bf16<D, 64>(a, BH, st);
-  if (a.bk == 128) return launch_bf16<D, 128>(a, BH, st);
+#define BK_CASE(BK_)                                          \
+  if (a.bk == BK_)                                            \
+    return dtype == 0 ? launch_f32<D, BK_>(a, BH, st)         \
+                      : launch_bf16<D, BK_>(a, BH, st);
+  BK_CASE(32) BK_CASE(64) BK_CASE(128)
+#undef BK_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -536,8 +663,9 @@ extern "C" {
 // outside (32, 64, 128).  dtype: 0 = float32, 1 = bfloat16 (q, k, v and out
 // share it).  Batch b, head h, row r of q lives at q + b*s[0] + h*s[1] +
 // r*s[2] (elements), of k at s[3..5], of v at s[6..8], of out at s[9..11];
-// blocks cover B*H (b, h) pairs.  bq divides S and bk divides Sk.  In bf16
-// the pointers and k's and v's strides are 16-byte aligned.
+// blocks cover B*H (b, h) pairs.  bq divides S and bk divides Sk.  k and v
+// (and in bf16 q) are 16-byte aligned with strides of a multiple of 16
+// bytes.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int H, int S, int Sk, int D,
                            int bq, int bk, int causal, int window, int dtype,

@@ -9,8 +9,10 @@
 // divide (M, N, K); the wrapper clamps them to the dims first and refuses a
 // tile outside the instantiated menu (kMenu below): bm in {32, 64, 128},
 // bn in {64, 128}, bk in {64, 128}, the same twelve tiles for both dtypes.
-// One block computes exactly one (bm, bn) output tile and walks K in bk
-// steps, so the caller's tile keeps the meaning it has in the reference.
+// One block computes exactly one (bm, bn) output tile, so the caller's tile
+// keeps the meaning it has in the reference; the bf16 kernel walks K in bk
+// steps, the f32 kernel in 16-deep stages (its sum runs along K in order,
+// so bk changes nothing it computes).
 //
 // What bounds it.  At the main path's shape (2048 x 2048 @ 2048 x 5632) the
 // product does ~2 * 2048 flops per element it reads, far above the card's
@@ -46,11 +48,30 @@
 // CUDA driver's `cuTensorMapEncodeTiled`, reached with
 // `cudaGetDriverEntryPoint`, so the library links no libcuda of its own.
 //
-// f32: a single TF32 pass keeps about three decimal digits and cannot meet
-// f32's 1e-5, so f32 keeps the CUDA-core kernel `tuned_matmul_kernel`: one
-// block of 256 threads per (bm, bn) tile stages the x tile (transposed, rows
-// padded by one float) and the y tile in shared memory as f32, and every
-// thread accumulates a (bm/16) x (bn/16) register tile with scalar FMAs.
+// f32: what the design does about that.  `matmul_f32_simt` runs on the
+// CUDA cores (bound 2MNK at 67 TFLOP/s: 0.705 ms at the main path's shape).
+// The tensor cores were tried first, as a 3xTF32 split (x = hi + lo, hi =
+// tf32(x), lo = tf32(x - hi); lo.hi + hi.lo + hi.hi in `mma.sync.m16n8k8`,
+// each fresh register tile added to the f32 sum every 8-128 of K): at
+// 2048 x 2048 @ 2048 x 5632 it is within ref.KERNEL_TOL of the exact
+// product on all but 0-7 of 11.5e6 outputs at spans of 16-32 (58-67 at 8,
+// 92-99 at 64, ~1.3e4 at 128; one TF32 pass misses 98%), but the gate is
+// the plain f32 product, torch.matmul, whose one f32 FMA chain along K is
+// itself outside that tolerance of the exact product on ~1.85e4 outputs:
+// against it the split misses on 2.2e4-5.9e4 outputs on every draw and span
+// (`tf32_span.py` and `tf32_span.cu` measure it).  At K = 2048 two f32
+// summation orders differ by more than 1e-5, so the kernel keeps the plain
+// product's order: each output is one f32 FMA chain along K in order (it
+// equals torch.matmul f32 to the bit at that shape).  What is left is the
+// FMA rate.  A block of BN threads sums a 16 x 8 register tile a thread at
+// bm = 128 (128 FMAs a k for 6 16-byte shared loads, fetched a k ahead).
+// The x and y tiles of the next 16-deep K stage are loaded into registers
+// by 16-byte loads while this one is summed, then stored into the other of
+// two shared buffers, x's transposed so that a thread's rows of one k are
+// contiguous (33 KB at 128 x 128: two blocks fit an SM, and 255 registers
+// a thread allow two).  A 3-stage `cp.async` ring of x's tile as it lies
+// in memory, 8 x 8 tiles of 256 threads, x transposed through 4-byte
+// copies, deeper stages and a swizzled block order were slower on the card.
 
 #include <cuda.h>            // CUtensorMap and its enums (no libcuda link)
 #include <cuda_bf16.h>
@@ -60,82 +81,161 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // f32: a 16 x 16 grid of threads
+// ---------------------------------------------------------------------------
+// f32: CUDA cores, a register-blocked tile
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float v, float* dst) { *dst = v; }
+namespace simt {
 
-template <int BM, int BN, int BK>
+constexpr int KS = 16;          // K depth of one stage
+
+template <int BM>
+__host__ __device__ constexpr int a_pitch() {
+  return BM + 4;                // x^T row: 16-byte aligned
+}
+template <int BM, int BN>
 constexpr size_t smem_bytes() {
-  return (size_t)(BK * (BM + 1) + BK * BN) * sizeof(float);
+  return (size_t)2 * KS * (a_pitch<BM>() + BN) * sizeof(float);
 }
 
-template <typename T, int BM, int BN, int BK>
-__global__ void __launch_bounds__(kThreads)
-tuned_matmul_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                    T* __restrict__ out, int M, int N, int K) {
-  constexpr int TM = BM / 16, TN = BN / 16;
-  static_assert(BM % 16 == 0 && BN % 16 == 0, "tiles are multiples of 16");
-  extern __shared__ float smem[];
-  float* xs = smem;                       // [BK][BM + 1], x tile transposed
-  float* ys = smem + BK * (BM + 1);       // [BK][BN]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+// A block of BN threads, 8 rows of BN / 8: thread (ty, tx) sums rows 4 ty +
+// r + 32 q (r < 4, q < BM / 32) at columns 4 tx + c and BN / 2 + 4 tx + c
+// (c < 4) in registers; a warp covers WX threads of a row and 32 / WX rows.
+// Each output is one f32 FMA chain along K in order, the plain product's
+// (torch.matmul in f32 with TF32 off), so the two agree to the bit where
+// the library takes that order.  Two shared buffers of a KS-deep stage:
+// x's (BM, KS) tile transposed to (KS, BM) and y's (KS, BN) tile.  The next
+// stage's tiles are loaded into registers by 16-byte loads while this one
+// is summed, then stored (x's transposed, each lane its own row) into the
+// other buffer: one barrier a stage.  A k's fragments (BM / 8 x values, 8
+// y values) are 16-byte shared loads, fetched one k ahead.
+template <int BM, int BN>
+__global__ void __launch_bounds__(BN, 2)
+matmul_f32_simt(const float* __restrict__ x, const float* __restrict__ y,
+                float* __restrict__ out, int N, int K) {
+  constexpr int NT = BN, TM = BM / 8, TX = BN / 8, AP = a_pitch<BM>();
+  constexpr int WX = TX < 16 ? TX : 16, WY = 32 / WX;
+  constexpr int BUF = KS * (AP + BN);
+  constexpr int NA = BM * KS / 4 / NT, NB = KS * BN / 4 / NT;  // float4s
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
+  const int ty = (w / (TX / WX)) * WY + l / WX;
+  const int tx = (w % (TX / WX)) * WX + l % WX;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int nk = K / KS;
 
-  float acc[TM][TN];
+  // float4 e of x's tile: row e % BM, k 4 (e / BM); of y's: row e / (BN/4)
+  float4 ra[NA], rb[NB];
+  auto load = [&](int kt) {
+    const int k0 = kt * KS;
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      const int e = tid + NT * j;
+      ra[j] = __ldg(reinterpret_cast<const float4*>(
+          x + (size_t)(row0 + e % BM) * K + k0 + 4 * (e / BM)));
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int e = tid + NT * j;
+      rb[j] = __ldg(reinterpret_cast<const float4*>(
+          y + (size_t)(k0 + e / (BN / 4)) * N + col0 + 4 * (e % (BN / 4))));
+    }
+  };
+  auto store = [&](int buf) {
+    float* as = smem + buf * BUF;
+    float* bs = as + KS * AP;
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      const int e = tid + NT * j, r = e % BM, k = 4 * (e / BM);
+      as[(k + 0) * AP + r] = ra[j].x;
+      as[(k + 1) * AP + r] = ra[j].y;
+      as[(k + 2) * AP + r] = ra[j].z;
+      as[(k + 3) * AP + r] = ra[j].w;
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int e = tid + NT * j;
+      *reinterpret_cast<float4*>(bs + (e / (BN / 4)) * BN +
+                                 4 * (e % (BN / 4))) = rb[j];
+    }
+  };
+
+  float acc[TM][8];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += kThreads) {
-      const int r = e / BK, c = e % BK;
-      xs[c * (BM + 1) + r] = to_f32(x[(size_t)(row0 + r) * K + k0 + c]);
-    }
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int r = e / BN, c = e % BN;
-      ys[r * BN + c] = to_f32(y[(size_t)(k0 + r) * N + col0 + c]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load(kt + 1);
+    const float* as = smem + (kt & 1) * BUF;
+    const float* bs = as + KS * AP;
+    float4 af[2][TM / 4], bf[2][2];
+    auto fetch = [&](int k, int slot) {
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[k * (BM + 1) + ty + 16 * i];
+      for (int q = 0; q < TM / 4; ++q)
+        af[slot][q] =
+            *reinterpret_cast<const float4*>(as + k * AP + 4 * ty + 32 * q);
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ys[k * BN + tx + 16 * j];
+      for (int g = 0; g < 2; ++g)
+        bf[slot][g] = *reinterpret_cast<const float4*>(
+            bs + k * BN + (BN / 2) * g + 4 * tx);
+    };
+    fetch(0, 0);
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const int cur = k & 1;
+      if (k + 1 < KS) fetch(k + 1, cur ^ 1);
+      float a[TM], b[8];
+#pragma unroll
+      for (int q = 0; q < TM / 4; ++q) {
+        a[4 * q] = af[cur][q].x;
+        a[4 * q + 1] = af[cur][q].y;
+        a[4 * q + 2] = af[cur][q].z;
+        a[4 * q + 3] = af[cur][q].w;
+      }
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        b[4 * g] = bf[cur][g].x;
+        b[4 * g + 1] = bf[cur][g].y;
+        b[4 * g + 2] = bf[cur][g].z;
+        b[4 * g + 3] = bf[cur][g].w;
+      }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
+    if (kt + 1 < nk) store((kt + 1) & 1);   // last read a stage ago
     __syncthreads();
   }
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j)
-      store(acc[i][j],
-            out + (size_t)(row0 + ty + 16 * i) * N + col0 + tx + 16 * j);
+    for (int g = 0; g < 2; ++g)
+      *reinterpret_cast<float4*>(
+          out + (size_t)(row0 + 4 * ty + i % 4 + 32 * (i / 4)) * N + col0 +
+          (BN / 2) * g + 4 * tx) =
+          make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                      acc[i][4 * g + 3]);
 }
 
-template <typename T, int BM, int BN, int BK>
+template <int BM, int BN>
 int launch(const void* x, const void* y, void* out, int M, int N, int K,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<BM, BN, BK>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        tuned_matmul_kernel<T, BM, BN, BK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  constexpr size_t smem = smem_bytes<BM, BN>();
+  static_assert(smem <= 48 * 1024, "static shared-memory budget");
   const dim3 grid(N / BN, M / BM);
-  tuned_matmul_kernel<T, BM, BN, BK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<T*>(out),
-      M, N, K);
+  matmul_f32_simt<BM, BN><<<grid, BN, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<float*>(out), N, K);
   return (int)cudaGetLastError();
 }
+
+}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA
@@ -467,7 +567,7 @@ template <int BM, int BN, int BK>
 int launch_tile(const void* x, const void* y, void* out, int M, int N, int K,
                 int dtype, cudaStream_t st) {
   if (dtype == 1) return launch_bf16<BM, BN, BK>(x, y, out, M, N, K, st);
-  return launch<float, BM, BN, BK>(x, y, out, M, N, K, st);
+  return simt::launch<BM, BN>(x, y, out, M, N, K, st);
 }
 
 int dispatch(const void* x, const void* y, void* out, int M, int N, int K,
@@ -493,8 +593,8 @@ extern "C" {
 // cudaErrorInvalidValue for a tile outside the menu, or a negative code of
 // the bf16 path's TMA descriptors (tuned_matmul_error_string names it).
 // dtype: 0 = float32, 1 = bfloat16 (x, y and out share it).  The tiles must
-// divide the dims; in bf16, x, y and out must be 16-byte aligned and K and N
-// multiples of 8.
+// divide the dims; x, y and out must be 16-byte aligned and K and N
+// multiples of 16 bytes (both dtypes load by 16-byte copies).
 int tuned_matmul_launch(const void* x, const void* y, void* out, int M, int N,
                         int K, int bm, int bn, int bk, int dtype,
                         void* stream) {

@@ -11,8 +11,11 @@ Query i sees key j where ``i >= j`` (causal) and ``i - j < window``
 (window > 0), on absolute positions, also when S != Sk.  The tiles
 ``(bq, bk)`` are the caller's, clamped to S and Sk and required to divide
 them, as the TPU kernel asserts; the kernel takes each of them in
-:data:`TILES`.  This module holds the CUDA path only: the plain version is
-:func:`repro_torch.kernels.ref.flash_attention`.
+:data:`TILES`.  K and V rows arrive by 16-byte copies, so k and v (and
+bf16 q) must be 16-byte aligned with strides of a multiple of 16 bytes
+(:func:`check_aligned`); anything else raises.  f32 runs on the tensor
+cores as a 3xTF32 split.  This module holds the CUDA path only: the plain
+version is :func:`repro_torch.kernels.ref.flash_attention`.
 """
 from __future__ import annotations
 
@@ -100,19 +103,27 @@ def _check(q, k, v, bq: int, bk: int):
     return bq, bk
 
 
+def check_aligned(q, k, v, strides) -> None:
+    """Raise unless the kernel's 16-byte copies can read K and V rows
+    (both dtypes) and, in bf16, Q's 4-byte words: 16-byte aligned data and
+    (batch, head, row) strides (``strides``, 12 as the kernel takes them)
+    of a multiple of 16 bytes.  f32 Q is read one element at a time."""
+    named = [("k", k, strides[3:6]), ("v", v, strides[6:9])]
+    if q.dtype == torch.bfloat16:
+        named.insert(0, ("q", q, strides[0:3]))
+    for name, t, st in named:
+        if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in st):
+            raise ValueError(f"{str(t.dtype)[6:]} {name} must be 16-byte "
+                             f"aligned with strides of a multiple of 16 "
+                             f"bytes, got {tuple(t.stride())}")
+
+
 def _launch(q, k, v, out, B, H, layout, causal, window, bq, bk):
     """Launch on q's current stream, reading and writing every tensor
     through its strides; counts the launch."""
     strides = [s for t in (q, k, v, out)
                for s in kernel_strides(t.stride(), layout)]
-    if q.dtype == torch.bfloat16:
-        # K and V rows arrive by 16-byte cp.async, Q and out by 4-byte words
-        for name, t, st in (("q", q, strides[0:3]), ("k", k, strides[3:6]),
-                            ("v", v, strides[6:9])):
-            if t.data_ptr() % 16 or any(s % 8 for s in st):
-                raise ValueError(f"bf16 {name} must be 16-byte aligned with "
-                                 f"strides of a multiple of 8 elements, got "
-                                 f"{tuple(t.stride())}")
+    check_aligned(q, k, v, strides)
     S, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
     if B * H * S == 0:
         return out

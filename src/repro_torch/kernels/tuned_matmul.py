@@ -7,10 +7,12 @@ x (M, K) @ y (K, N) -> (M, N) in x's dtype, f32 accumulator.  The tiles
 (``min(b, dim)``) and must divide them, as the TPU kernel asserts.  The
 kernel is instantiated for a fixed menu of tiles (:data:`MENU`: bm in
 {32, 64, 128}, bn and bk in {64, 128}, in both dtypes); a tile outside it
-raises and names the menu, never silently becoming another.  In bf16 the
-kernel loads its tiles by TMA, so x and y must be 16-byte aligned with
-rows of a multiple of 16 bytes; anything else raises (there is no
-fallback).  This module holds the CUDA path only: the plain version is
+raises and names the menu, never silently becoming another.  The kernel
+loads its tiles by 16-byte copies (TMA in bf16, 16-byte loads in f32), so
+x and y must be 16-byte aligned with rows of a multiple of 16 bytes (every
+menu tile makes K and N multiples of 64, so only a view's offset can
+break it); anything else raises (there is no fallback).  This module
+holds the CUDA path only: the plain version is
 :func:`repro_torch.kernels.ref.matmul` and the device dispatch lives in
 :mod:`repro_torch.kernels.ops`.
 """
@@ -84,15 +86,17 @@ def check_shapes(x: torch.Tensor, y: torch.Tensor):
     return x.shape[0], y.shape[1], x.shape[1]
 
 
-def check_tma_operands(x: torch.Tensor, y: torch.Tensor) -> None:
-    """Raise unless TMA can describe x and y: 16-byte aligned data and rows
-    (K and N elements) of a multiple of 16 bytes."""
+def check_aligned_operands(x: torch.Tensor, y: torch.Tensor) -> None:
+    """Raise unless the kernel's 16-byte copies can read x and y: 16-byte
+    aligned data and rows (K and N elements) of a multiple of 16 bytes."""
     for name, t in (("x", x), ("y", y)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for TMA")
+            raise ValueError(f"{name} must be 16-byte aligned for the "
+                             f"kernel's 16-byte copies")
         if t.shape[1] * t.element_size() % 16:
             raise ValueError(f"{name}'s rows ({t.shape[1]} elements) must "
-                             f"be a multiple of 16 bytes for TMA")
+                             f"be a multiple of 16 bytes for the kernel's "
+                             f"16-byte copies")
 
 
 def tuned_matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
@@ -110,8 +114,7 @@ def tuned_matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("x and y must be contiguous")
     tiles = menu_tiles(M, N, K, bm, bn, bk)
-    if x.dtype == torch.bfloat16:
-        check_tma_operands(x, y)
+    check_aligned_operands(x, y)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M * N == 0:
         return out

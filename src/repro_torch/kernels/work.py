@@ -80,11 +80,17 @@ def attention(BH: int, S: int, Sk: int, D: int, item: int, causal: bool,
 
 
 def bound_ms(nbytes: float, ops: float, dtype,
-             card: roofline.Card = roofline.H100_SXM):
+             card: roofline.Card = roofline.H100_SXM, tf32_passes: int = 0):
     """The least time in ms the card could take for this work, the larger
     of the bytes over device-memory bandwidth and the operations over the
-    peak rate for ``dtype``; and which of the two it is."""
+    peak rate for ``dtype``; and which of the two it is.  ``tf32_passes``
+    > 0 bounds an f32 call that runs on the tensor cores in that many TF32
+    products (3 for a 3xTF32 split): that many times the operations at the
+    card's TF32 rate."""
     t_bytes = nbytes / card.hbm_bw
-    t_ops = ops / roofline.peak_ops(dtype, card)
+    if tf32_passes:
+        t_ops = tf32_passes * ops / card.tf32_flops
+    else:
+        t_ops = ops / roofline.peak_ops(dtype, card)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
